@@ -1,0 +1,339 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
+
+1. device: requires a card (exits non-zero without one) and prints
+   ``nvidia-smi``'s name and power limit;
+2. build: compiles every CUDA source in ``ops/csrc/`` with nvcc for
+   sm_90a and prints nvcc's register/shared-memory summary;
+3. kernel vs plain: ``fused_dense_relu`` against its plain PyTorch version
+   in float32 and bfloat16 at the wd1 shapes and a ragged one;
+4. serving: writes a checkpoint of a seeded ``DeepCNN``, builds the stack
+   through ``build_serving_stack`` with ``--pallas`` (then ``--bf16``),
+   POSTs 64 examples to ``/v1/predict`` from 8 threads, checks every answer
+   against the ``use_pallas=False`` forward on the card, and checks that
+   the kernel launched once per predict batch;
+5. times: per shape the kernel, its plain version and ``torch.addmm`` +
+   ``relu_`` (a yardstick the port never calls), each from CUDA events
+   around a CUDA graph of many launches over rotating buffers larger than
+   L2, beside the least time the card could take;
+6. the ``kernels`` JSON line, the card line, and ``{"ok": true, ...}`` last.
+
+Any failed phase raises, so the script exits non-zero. f32 runs in full
+f32: TF32 is turned off for cuDNN and cuBLAS.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import urllib.request
+
+import numpy as np
+import torch
+
+from distributed_tensorflow_tpu_torch import flags
+from distributed_tensorflow_tpu_torch.checkpoint import save_checkpoint
+from distributed_tensorflow_tpu_torch.data import synthetic_digits
+from distributed_tensorflow_tpu_torch.models import DeepCNN
+from distributed_tensorflow_tpu_torch.ops import _build, fused_dense
+from distributed_tensorflow_tpu_torch.ops.fused_dense import (
+    fused_dense_relu,
+    fused_dense_relu_reference,
+)
+from distributed_tensorflow_tpu_torch.serving.__main__ import (
+    build_serving_stack,
+)
+from distributed_tensorflow_tpu_torch.serving.server import InferenceServer
+from distributed_tensorflow_tpu_torch.utils.pytree import params_to_numpy
+
+# H100 SXM data-sheet peaks at 700 W
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+L2_BYTES = 50 * 2 ** 20
+
+SHAPES = [(1, 3136, 1024), (8, 3136, 1024), (256, 3136, 1024), (130, 257, 70)]
+SERVE_SHAPE = (8, 3136, 1024)  # the largest predict bucket (--serve_max_batch 8)
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# kernel vs plain: f32 is a reordered float32 sum; bf16 both round one
+# float32 sum to bfloat16 (one ulp = 2**-7 relative), 1e-3 near zero
+KERNEL_TOL = {"f32": dict(rtol=1e-4, atol=1e-4),
+              "bf16": dict(rtol=2 ** -7, atol=1e-3)}
+# served logits vs the use_pallas=False forward. f32: as above, through
+# two more layers (rtol/atol 1e-4). bf16: the two FC paths round wd1's
+# output at different points (the plain one before its f32 bias, the
+# kernel after a bf16 bias), and the out layer sums 1024 such terms into
+# logits rounded to bfloat16, so the error scales with the logits'
+# magnitude, not each logit's own: max |err| <= 2e-2 * max |logit|
+SERVE_TOL = {"f32": dict(rtol=1e-4, atol=1e-4), "bf16": dict(scale=2e-2)}
+
+N_REQUESTS, N_THREADS = 64, 8
+KERNEL_SRC = "distributed_tensorflow_tpu_torch/ops/csrc/fused_dense_relu.cu"
+TPU_KERNEL = "distributed_tensorflow_tpu/ops/pallas_ops.py:69"
+
+def say(phase: str, line: str) -> None:
+    print(f"[{phase}] {line}", flush=True)
+
+
+def serve_ok(got, ref, tag) -> bool:
+    if tag == "bf16":
+        scale = float(np.abs(ref).max())
+        return float(np.abs(got - ref).max()) <= SERVE_TOL[tag]["scale"] * scale
+    return bool(np.allclose(got, ref, **SERVE_TOL[tag]))
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[torch.cuda.current_device()].strip()
+
+
+def inputs(shape, dtype, seed, device="cuda"):
+    m, k, n = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((m, k), generator=g)  # post-ReLU-like activations
+    w = torch.randn((k, n), generator=g) * 0.05
+    b = torch.randn((n,), generator=g) * 0.1
+    return tuple(t.to(device, dtype) for t in (x, w, b))
+
+
+def bound(shape, dtype) -> tuple[float, str]:
+    """Least time (ms) for relu(x @ w + b): each input read once, the
+    output written once, over HBM; 2*M*N*K + 2*M*N operations over the
+    dtype's peak (f32 FMA units for f32, tensor cores for bf16)."""
+    m, k, n = shape
+    es = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = (m * k + k * n + n + m * n) * es / HBM_BYTES_PER_S
+    t_ops = (2 * m * n * k + 2 * m * n) / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def graph_ms(fn, bufs, reps: int) -> float:
+    """Device time per call: ``reps`` calls over rotating buffers captured
+    in one CUDA graph (no host gaps), timed by CUDA events over a replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(*bufs[i % len(bufs)])
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*bufs[i % len(bufs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def library_call(x, w, b):
+    return torch.addmm(b, x, w).relu_()
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs the port on an NVIDIA GPU", file=sys.stderr)
+        sys.exit(2)
+    # f32 in full f32 on the card: cuDNN's default is TF32 for f32 convs
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    say("device", f"{card} | torch {torch.__version__} cuda "
+                  f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} "
+                  f"x{torch.cuda.device_count()}")
+    return card
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    dt = time.perf_counter() - t0
+    say("build", f"{len(logs)} source(s) built in {dt:.1f} s "
+                 f"({_build.nvcc_path()}, {' '.join(_build.NVCC_FLAGS)})")
+    for name in sorted(p.stem for p in _build.CSRC.glob("*.cu")):
+        for line in _build.build_log(name).splitlines():
+            if any(s in line for s in ("registers", "spill", "Compiling")):
+                say("build", f"{name}: {line.strip()}")
+        _build.load_library(name)
+
+
+def phase_kernel_vs_plain() -> dict:
+    worst = {}
+    for tag, dtype in DTYPES.items():
+        worst[tag] = 0.0
+        for shape in SHAPES:
+            x, w, b = inputs(shape, dtype, seed=sum(shape))
+            got = fused_dense_relu(x, w, b)
+            ref = fused_dense_relu_reference(x, w, b)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            ok = torch.allclose(got.float(), ref.float(), **KERNEL_TOL[tag])
+            say("kernel", f"{tag} {shape}: max_abs_err {err:.3e} "
+                          f"(tolerance {KERNEL_TOL[tag]}) "
+                          f"{'ok' if ok else 'FAIL'}")
+            if not (ok and got.shape == (shape[0], shape[2])
+                    and got.dtype == dtype):
+                raise AssertionError(f"kernel disagrees with its plain "
+                                     f"version at {tag} {shape}")
+            worst[tag] = max(worst[tag], err)
+    return worst
+
+
+def _post(url: str, obj: dict) -> dict:
+    req = urllib.request.Request(url, data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def phase_serve(tag: str) -> dict:
+    """The port's main path: checkpoint -> build_serving_stack(--pallas)
+    -> HTTP predict, checked against the use_pallas=False forward."""
+    model = DeepCNN().init(torch.Generator().manual_seed(0))
+    x, _ = synthetic_digits(N_REQUESTS, seed=7)
+    with tempfile.TemporaryDirectory() as logdir:
+        save_checkpoint(logdir, {"params": params_to_numpy(model),
+                                 "step": np.int32(1)}, 1)
+        flags.define_flags()
+        flags.FLAGS._reset()
+        flags.FLAGS._parse(
+            ["--logdir", logdir, "--pallas", "--serve_max_batch", "8",
+             "--serve_port", "0", "--serve_reload_secs", "0",
+             "--serve_timeout_ms", "60000"]
+            + (["--bf16"] if tag == "bf16" else []))
+        engine, client, _watcher, metrics = build_serving_stack(flags.FLAGS)
+        batcher = client.predict_batcher
+        server = InferenceServer(engine, client, port=0).start_background()
+        try:
+            _post(server.address + "/v1/predict", {"inputs": x[0].tolist()})
+            for n in (1, 2, 4, 8):  # first use of each bucket's shapes
+                engine.predict(x[:n])
+            torch.cuda.synchronize()
+            batcher.latency.reset()
+            outs = [None] * N_REQUESTS
+            batches0 = batcher.stats.as_dict()["batches"]
+            fused_dense.LAUNCHES = 0  # the main path's run starts here
+
+            def worker(t):
+                for i in range(t, N_REQUESTS, N_THREADS):
+                    outs[i] = _post(server.address + "/v1/predict",
+                                    {"inputs": x[i].tolist()})["outputs"]
+
+            threads = [threading.Thread(target=worker, args=(t,))
+                       for t in range(N_THREADS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            wall = time.perf_counter() - t0
+            launches = fused_dense.LAUNCHES  # ... and ends here
+            stats = batcher.stats.as_dict()
+            lat = batcher.latency.summary()
+        finally:
+            server.close()
+            batcher.close()
+            metrics.logger.close()
+    batches = stats["batches"] - batches0
+    got = np.asarray(outs, dtype=np.float32)
+    ref_model = DeepCNN(compute_dtype=engine.model.compute_dtype,
+                        use_pallas=False)
+    ref_model.load_state_dict(model.state_dict())
+    ref_model = ref_model.cuda().eval()
+    with torch.inference_mode():
+        ref = ref_model(torch.from_numpy(x).cuda()).float().cpu().numpy()
+    err = float(np.abs(got - ref).max())
+    ok = (got.shape == (N_REQUESTS, 10) and np.isfinite(got).all()
+          and serve_ok(got, ref, tag))
+    say("serve", f"{tag}: {N_REQUESTS} HTTP predicts in {wall:.3f} s, "
+                 f"{batches} batches (mean {stats['mean_batch_size']:.2f}), "
+                 f"kernel launches {launches}; logits vs use_pallas=False "
+                 f"max_abs_err {err:.3e} (max |logit| "
+                 f"{np.abs(ref).max():.3f}; tolerance {SERVE_TOL[tag]}); "
+                 f"request p50 {lat['p50']:.3f} ms p99 {lat['p99']:.3f} ms")
+    if not ok:
+        raise AssertionError(f"served {tag} logits disagree with the "
+                             f"use_pallas=False forward")
+    if launches != batches or batches < 1 or stats["completed"] < N_REQUESTS:
+        raise AssertionError(f"{tag}: {launches} kernel launches for "
+                             f"{batches} predict batches")
+    return {"launches": launches, "batches": batches, "max_abs_err": err,
+            "latency_ms": lat, "wall_s": wall}
+
+
+def phase_times(card: str, served: dict) -> dict:
+    for tag, run in served.items():
+        lat = run["latency_ms"]
+        say("times", f"{tag} serving: request p50 {lat['p50']:.3f} ms, p99 "
+                     f"{lat['p99']:.3f} ms over {int(lat['count'])} HTTP "
+                     f"predicts (batcher histogram) | {card}")
+    times = {}
+    for tag, dtype in DTYPES.items():
+        for shape in SHAPES:
+            one = inputs(shape, dtype, seed=1, device="cpu")
+            per_call = sum(t.numel() for t in one) * one[0].element_size()
+            n_buf = max(1, min(64, math.ceil(2 * L2_BYTES / per_call)))
+            bufs = [tuple(t.cuda() for t in inputs(shape, dtype, seed=i))
+                    for i in range(n_buf)]
+            reps = max(100, n_buf)
+            row = {"ms": graph_ms(fused_dense_relu, bufs, reps),
+                   "plain_ms": graph_ms(fused_dense_relu_reference, bufs,
+                                        reps),
+                   "library_ms": graph_ms(library_call, bufs, reps)}
+            row["bound_ms"], row["bound_by"] = bound(shape, dtype)
+            times[(tag, shape)] = row
+            say("times", f"{tag} {shape}: kernel {row['ms'] * 1e3:.2f} us, "
+                         f"plain {row['plain_ms'] * 1e3:.2f} us, addmm+relu_ "
+                         f"{row['library_ms'] * 1e3:.2f} us, bound "
+                         f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}); "
+                         f"{n_buf} rotating buffers | {card}")
+            del bufs
+    return times
+
+
+def main() -> int:
+    card = phase_device()
+    phase_build()
+    worst = phase_kernel_vs_plain()
+    served = {tag: phase_serve(tag) for tag in DTYPES}
+    times = phase_times(card, served)
+    kernels = []
+    for tag in DTYPES:
+        t = times[(tag, SERVE_SHAPE)]
+        kernels.append({
+            "name": f"fused_dense_relu[{tag}]", "route": "cuda",
+            "source": KERNEL_SRC, "replaces": TPU_KERNEL,
+            "launches": served[tag]["launches"],
+            "max_abs_err": worst[tag], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": list(SERVE_SHAPE)})
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

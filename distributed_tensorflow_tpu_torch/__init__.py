@@ -1,0 +1,16 @@
+"""PyTorch and CUDA port of ``distributed_tensorflow_tpu``, for an NVIDIA H100.
+
+The JAX package beside this one is the reference: this package keeps its
+module paths, public names, parameter layouts (HWIO conv kernels, NHWC
+activations at public functions) and on-disk checkpoint format, so a
+checkpoint written by either package restores in the other.
+
+It imports ``torch`` and never ``jax`` or ``distributed_tensorflow_tpu``.
+Entry points run on ``cuda`` unless the caller asks for the CPU, and raise
+when no card is present instead of falling back.
+
+Ported so far: the serving slice of the reference ``deep_cnn``
+(``python -m distributed_tensorflow_tpu_torch.serving``), with the ``wd1``
+layer's fused matmul + bias + ReLU as a hand-written CUDA kernel
+(``ops/csrc/fused_dense_relu.cu``).
+"""

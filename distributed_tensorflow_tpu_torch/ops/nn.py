@@ -1,0 +1,96 @@
+"""Neural-net ops of the deep CNN, in PyTorch.
+
+The counterpart of ``distributed_tensorflow_tpu/ops/nn.py`` (``conv2d``,
+``maxpool2d``, ``dense``, ``normalize_if_u8``, ``dropout``). Public
+functions keep the reference's layouts: NHWC activations and HWIO conv
+kernels. ``conv2d`` hands cuDNN an NCHW view of the NHWC tensor (the
+channels-last memory format, so no copy) and an OIHW view of the kernel.
+
+On the card, f32 convolutions run in full f32 only when the caller has
+set ``torch.backends.cudnn.allow_tf32 = False`` (cuDNN's default is TF32);
+the serving entry point does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """TF/XLA SAME padding for one spatial dim: (before, after)."""
+    out = math.ceil(size / stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(x, w, b=None, strides: int = 1, *, compute_dtype=None):
+    """SAME-padded conv + bias + ReLU on NHWC ``x`` and HWIO ``w``.
+
+    The dtype chain follows the reference: with ``compute_dtype`` the conv
+    runs in it, the result is cast back to ``x``'s dtype, then the bias is
+    added and ReLU applied."""
+    in_dtype = x.dtype
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        w = w.to(compute_dtype)
+    kh, kw = w.shape[0], w.shape[1]
+    top, bottom = _same_pads(x.shape[1], kh, strides)
+    left, right = _same_pads(x.shape[2], kw, strides)
+    xn = x.permute(0, 3, 1, 2)
+    if top or bottom or left or right:
+        xn = F.pad(xn, (left, right, top, bottom))
+    y = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=strides)
+    y = y.permute(0, 2, 3, 1)
+    if compute_dtype is not None:
+        y = y.to(in_dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return torch.relu(y)
+
+
+def maxpool2d(x, k: int = 2):
+    """k x k max-pool, stride k, SAME padding on NHWC ``x``: the end of an
+    odd-sized dim is padded with -inf (the dtype's minimum for ints)."""
+    n, h, w, c = x.shape
+    (top, bottom), (left, right) = _same_pads(h, k, k), _same_pads(w, k, k)
+    if top or bottom or left or right:
+        fill = (-math.inf if x.dtype.is_floating_point
+                else torch.iinfo(x.dtype).min)
+        x = F.pad(x, (0, 0, left, right, top, bottom), value=fill)
+    ho, wo = x.shape[1] // k, x.shape[2] // k
+    return x.reshape(n, ho, k, wo, k, c).amax(dim=(2, 4))
+
+
+def dense(x, w, b=None, *, compute_dtype=None):
+    """x @ w + b. With ``compute_dtype`` the matmul runs in that dtype
+    (operands and result), then casts back to ``x``'s dtype; the bias is
+    added after the cast."""
+    if compute_dtype is not None:
+        y = (x.to(compute_dtype) @ w.to(compute_dtype)).to(x.dtype)
+    else:
+        y = x @ w
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def normalize_if_u8(x, compute_dtype=None):
+    """uint8 pixels are normalized to [0, 1] in ``compute_dtype`` (float32
+    by default); any other dtype passes through."""
+    if x.dtype == torch.uint8:
+        return x.to(compute_dtype or torch.float32) / 255.0
+    return x
+
+
+def dropout(x, keep_prob, generator=None, *, deterministic: bool = False):
+    """Inverted dropout. ``deterministic=True`` or no ``generator`` is the
+    eval path (identity). ``keep_prob == 0`` zeroes everything."""
+    if deterministic or generator is None:
+        return x
+    mask = torch.rand(x.shape, generator=generator,
+                      device=x.device) < keep_prob
+    scale = 1.0 / keep_prob if keep_prob > 0 else 0.0
+    return torch.where(mask, x * scale, torch.zeros_like(x))

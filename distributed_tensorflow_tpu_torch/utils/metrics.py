@@ -1,0 +1,172 @@
+"""Serving metrics sinks: a JSONL scalar logger and a streaming histogram.
+
+The counterpart of ``distributed_tensorflow_tpu/utils/metrics.py``:
+``MetricsLogger`` keeps only its JSONL sink (the TensorBoard event file and
+the reference stdout line come with the training slice);
+``StreamingHistogram`` is the same geometric-bucket quantile estimator.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import threading
+import time
+
+
+class MetricsLogger:
+    """Scalar logger into ``<logdir>/<filename>`` as JSON lines.
+
+    Thread-safe: the serving cadence (batcher worker threads) and other
+    callers may share one logger; ``scalars`` writes each record under a
+    lock so lines never interleave."""
+
+    def __init__(self, logdir: str | None = None, job_name: str = "worker",
+                 filename: str = "metrics.jsonl"):
+        self.job = f"{job_name or 'worker'}/0"  # the JAX records' job/task
+        self._file = None
+        self._lock = threading.Lock()
+        if logdir:
+            os.makedirs(logdir, exist_ok=True)
+            self._file = open(os.path.join(logdir, filename), "a",
+                              buffering=1)
+
+    def scalars(self, step: int, values: dict):
+        with self._lock:
+            if self._file is not None:
+                rec = {"step": int(step), "time": time.time(),
+                       "job": self.job, **values}
+                self._file.write(json.dumps(rec) + "\n")
+
+    def flush(self):
+        with self._lock:
+            if self._file is not None:
+                self._file.flush()
+
+    def close(self):
+        with self._lock:
+            if self._file is not None:
+                self._file.close()
+                self._file = None
+
+
+class StreamingHistogram:
+    """Streaming quantile estimator over geometric buckets (p50/p90/p99).
+
+    The serving path needs latency QUANTILES, not means — a p99 cannot be
+    recovered from scalar averages after the fact — but must not hold
+    every observation (heavy traffic = millions of samples). Values land
+    in geometrically-spaced buckets (``growth`` relative width per
+    bucket, so the quantile error is bounded by the bucket ratio, ~4%
+    at the default), quantiles read the bucket CDF with log-linear
+    interpolation inside the landing bucket. O(1) record, O(buckets)
+    quantile, fixed memory. Thread-safe: server handler threads record
+    while the metrics cadence reads.
+
+    ``summary(prefix)`` returns the p50/p90/p99/mean/count dict shaped
+    for ``MetricsLogger.scalars`` — serving latency lands in the same
+    JSONL + TensorBoard event sinks as the training scalars.
+    """
+
+    QUANTILES = (0.5, 0.9, 0.99)
+
+    def __init__(self, low: float = 1e-3, high: float = 1e7,
+                 growth: float = 1.08):
+        if not (0 < low < high) or growth <= 1.0:
+            raise ValueError(f"need 0 < low < high and growth > 1, got "
+                             f"low={low}, high={high}, growth={growth}")
+        self._low = float(low)
+        self._log_growth = math.log(growth)
+        n = int(math.ceil(math.log(high / low) / self._log_growth))
+        # bucket i spans [low*g^i, low*g^(i+1)); +2 for underflow/overflow
+        self._counts = [0] * (n + 2)
+        self._lock = threading.Lock()
+        self._count = 0
+        self._sum = 0.0
+        self._min = math.inf
+        self._max = -math.inf
+
+    def _bucket(self, value: float) -> int:
+        if value < self._low:
+            return 0
+        i = int(math.log(value / self._low) / self._log_growth) + 1
+        return min(i, len(self._counts) - 1)
+
+    def record(self, value: float) -> None:
+        value = float(value)
+        with self._lock:
+            self._counts[self._bucket(value)] += 1
+            self._count += 1
+            self._sum += value
+            self._min = min(self._min, value)
+            self._max = max(self._max, value)
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def mean(self) -> float:
+        with self._lock:
+            return self._sum / self._count if self._count else 0.0
+
+    def _edge(self, i: int) -> float:
+        """Lower edge of bucket ``i`` (i >= 1; bucket 0 is underflow)."""
+        return self._low * math.exp((i - 1) * self._log_growth)
+
+    def _snapshot(self) -> tuple:
+        """One-lock consistent copy of the full estimator state — the
+        quantiles, mean and count a reader derives from it can never
+        disagree with each other (a cadence read racing ``record`` used
+        to take the lock per quantile and read ``_count`` outside it)."""
+        with self._lock:
+            return (list(self._counts), self._count, self._sum,
+                    self._min, self._max)
+
+    def _quantile_from(self, counts, count, mn, mx, q: float) -> float:
+        if not count:
+            return 0.0
+        rank = q * count
+        seen = 0.0
+        for i, c in enumerate(counts):
+            if not c:
+                continue
+            if seen + c >= rank:
+                if i == 0:
+                    return mn
+                frac = min(max((rank - seen) / c, 0.0), 1.0)
+                lo = self._edge(i)
+                val = lo * math.exp(frac * self._log_growth)
+                return min(max(val, mn), mx)
+            seen += c
+        return mx
+
+    def quantile(self, q: float) -> float:
+        """Value at quantile ``q`` in [0, 1]; 0.0 when empty. Clamped to
+        the observed min/max so sparse histograms don't over-report the
+        bucket width."""
+        counts, count, _total, mn, mx = self._snapshot()
+        return self._quantile_from(counts, count, mn, mx, q)
+
+    def summary(self, prefix: str = "") -> dict:
+        """{prefix}p50/p90/p99/mean/count — the scalars dict the serving
+        metrics cadence hands to MetricsLogger/events. Computed from ONE
+        locked snapshot: the count always agrees with the quantiles even
+        while handler threads record concurrently."""
+        counts, count, total, mn, mx = self._snapshot()
+        out = {f"{prefix}p{int(q * 100)}":
+               self._quantile_from(counts, count, mn, mx, q)
+               for q in self.QUANTILES}
+        out[f"{prefix}mean"] = total / count if count else 0.0
+        out[f"{prefix}count"] = float(count)
+        return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = [0] * len(self._counts)
+            self._count = 0
+            self._sum = 0.0
+            self._min = math.inf
+            self._max = -math.inf

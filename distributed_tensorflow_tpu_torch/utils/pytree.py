@@ -1,0 +1,137 @@
+"""Nested-dict state <-> path-keyed flat dict, and JAX params <-> torch.
+
+The counterpart of ``distributed_tensorflow_tpu/utils/pytree.py``
+(``path_key``, ``flatten_pytree``, ``unflatten_pytree``), over nested
+dicts, lists and tuples whose leaves are torch tensors, numpy arrays or
+scalars. Keys are '/'-joined paths ("params/weights/wd1"), the same keys
+the JAX package writes, so checkpoints cross between the packages.
+bfloat16 leaves are stored as uint16 bit patterns under a tagged key,
+because npz cannot hold bfloat16.
+
+``params_from_jax`` and ``params_to_numpy`` carry a JAX parameter tree
+(``{"weights": {...}, "biases": {...}}`` of numpy arrays) into a torch
+``state_dict`` and back.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+_BF16_TAG = "__bf16__"
+
+
+def path_key(path) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def _leaves_with_path(tree, prefix=()):
+    if isinstance(tree, Mapping):
+        for k in sorted(tree):
+            yield from _leaves_with_path(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves_with_path(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def _bf16_bits(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().contiguous().view(torch.int16).numpy().view(
+        np.uint16)
+
+
+def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """uint16 bfloat16 bit patterns -> the float32 values they encode
+    (exact: every bfloat16 is a float32)."""
+    return (bits.astype(np.uint32) << np.uint32(16)).view(np.float32)
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def flatten_pytree(tree) -> dict[str, np.ndarray]:
+    """Nested state -> {path_key: np.ndarray}. numpy has no bfloat16, so a
+    bfloat16 tensor leaf is stored as its uint16 bit pattern under
+    ``__bf16__<key>`` (the JAX package's ``tag_bf16=True`` layout)."""
+    flat = {}
+    for path, leaf in _leaves_with_path(tree):
+        key = path_key(path)
+        if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+            flat[_BF16_TAG + key] = _bf16_bits(leaf)
+        else:
+            flat[key] = _to_numpy(leaf)
+    return flat
+
+
+def _rebuild(template, leaves):
+    if isinstance(template, Mapping):
+        return {k: _rebuild(template[k], leaves) for k in sorted(template)}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_rebuild(v, leaves) for v in template)
+    return next(leaves)
+
+
+def unflatten_pytree(template, flat: dict[str, np.ndarray]):
+    """{path_key: array} -> nested state with ``template``'s structure.
+
+    Raises KeyError on a missing key and ValueError on a shape mismatch.
+    Each leaf takes the template leaf's kind and
+    dtype: a torch tensor for a tensor leaf (bfloat16 restored from its
+    bits), a numpy array otherwise."""
+    out = []
+    for path, leaf in _leaves_with_path(template):
+        key = path_key(path)
+        if key in flat:
+            arr, bits = np.asarray(flat[key]), False
+        elif _BF16_TAG + key in flat:
+            arr, bits = np.asarray(flat[_BF16_TAG + key]), True
+        else:
+            raise KeyError(f"missing array for {key!r}")
+        want_shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
+        if tuple(arr.shape) != want_shape:
+            raise ValueError(f"shape mismatch at {key!r}: got {arr.shape}, "
+                             f"expected {want_shape}")
+        if isinstance(leaf, torch.Tensor):
+            if bits:
+                t = torch.from_numpy(arr.view(np.int16).copy()).view(
+                    torch.bfloat16)
+            else:
+                t = torch.from_numpy(np.array(arr))
+            out.append(t.to(leaf.dtype))
+        else:
+            want = np.asarray(leaf).dtype
+            if bits:
+                arr = _bf16_bits_to_f32(arr)
+            out.append(arr if arr.dtype == want else arr.astype(want))
+    return _rebuild(template, iter(out))
+
+
+def params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """A JAX parameter tree of numpy arrays -> a torch ``state_dict``
+    ("weights.wd1", ...) on the CPU, ready for ``load_state_dict``.
+    Layouts are kept as they are (HWIO conv kernels, [in, out] dense)."""
+    return {".".join(str(p) for p in path): torch.from_numpy(
+                np.array(_to_numpy(leaf)))
+            for path, leaf in _leaves_with_path(tree)}
+
+
+def params_to_numpy(params) -> dict:
+    """A torch module (or its ``state_dict``) -> the JAX parameter tree of
+    numpy arrays. A bfloat16 tensor comes back as float32 (exact)."""
+    sd = params.state_dict() if isinstance(params, torch.nn.Module) \
+        else params
+    tree: dict = {}
+    for name, t in sd.items():
+        *parents, leaf = name.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = _to_numpy(t.float() if t.dtype == torch.bfloat16
+                               else t)
+    return tree

@@ -24,3 +24,8 @@ jax.config.update("jax_default_matmul_precision", "highest")
 assert len(jax.devices()) == 8, (
     f"tests require the 8-device virtual CPU mesh, got {jax.devices()}"
 )
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where none is present")
