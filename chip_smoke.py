@@ -8,14 +8,21 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
 1. device: requires a card (exits non-zero without one) and prints
    ``nvidia-smi``'s name and power limit;
 2. build: compiles every CUDA source in ``ops/csrc/`` with nvcc for
-   sm_90a and prints nvcc's register/shared-memory summary;
+   sm_90a, prints nvcc's register/shared-memory summary, and counts the
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in each
+   kernel's SASS (``cuobjdump -sass``): the "tma" variant must have both in
+   bf16 and TMA loads in f32;
 3. kernel vs plain: ``fused_dense_relu`` against its plain PyTorch version
-   in float32 and bfloat16 at the wd1 shapes and a ragged one;
+   in float32 and bfloat16 at the wd1 shapes and a ragged one, with the
+   variant ``launch_config`` picks; two calls on the same inputs must be
+   bitwise equal (the split-K sum has a fixed order); one wrapper call
+   must enqueue exactly one kernel (``torch.profiler``);
 4. serving: writes a checkpoint of a seeded ``DeepCNN``, builds the stack
    through ``build_serving_stack`` with ``--pallas`` (then ``--bf16``),
    POSTs 64 examples to ``/v1/predict`` from 8 threads, checks every answer
    against the ``use_pallas=False`` forward on the card, and checks that
-   the kernel launched once per predict batch;
+   the kernel launched once per predict batch, every time as the "tma"
+   variant;
 5. times: per shape the kernel, its plain version and ``torch.addmm`` +
    ``relu_`` (a yardstick the port never calls), each from CUDA events
    around a CUDA graph of many launches over rotating buffers larger than
@@ -30,6 +37,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -60,8 +70,12 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 L2_BYTES = 50 * 2 ** 20
 
-SHAPES = [(1, 3136, 1024), (8, 3136, 1024), (256, 3136, 1024), (130, 257, 70)]
+# (M, K, N): serving buckets 1 and 8, the training batch 128, a large
+# batch, and a ragged shape that TMA cannot describe (variant "simt")
+SHAPES = [(1, 3136, 1024), (8, 3136, 1024), (128, 3136, 1024),
+          (256, 3136, 1024), (130, 257, 70)]
 SERVE_SHAPE = (8, 3136, 1024)  # the largest predict bucket (--serve_max_batch 8)
+BITWISE_M = (8, 256)  # shapes whose repeat call must be bitwise equal
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # kernel vs plain: f32 is a reordered float32 sum; bf16 both round one
 # float32 sum to bfloat16 (one ulp = 2**-7 relative), 1e-3 near zero
@@ -163,6 +177,26 @@ def phase_device() -> str:
     return card
 
 
+def sass_counts(lib_path: str) -> dict[str, dict[str, int]]:
+    """Per kernel in the library, its ``HGMMA`` and ``UTMALDG`` SASS
+    instructions, from ``cuobjdump -sass``."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        cuobjdump = shutil.which("cuobjdump") or cuobjdump
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            fn = found.group(1)
+            counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -174,6 +208,31 @@ def phase_build() -> None:
             if any(s in line for s in ("registers", "spill", "Compiling")):
                 say("build", f"{name}: {line.strip()}")
         _build.load_library(name)
+    counts = sass_counts(str(_build.library_path("fused_dense_relu")))
+    for fn, c in sorted(counts.items()):
+        say("build", f"SASS {fn}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}")
+    tma = {fn: c for fn, c in counts.items() if "fdr_tma_kernel" in fn}
+    bf16 = [c for fn, c in tma.items() if "bfloat16" in fn]
+    f32 = [c for fn, c in tma.items() if "bfloat16" not in fn]
+    if not bf16 or not f32 or not all(c["HGMMA"] and c["UTMALDG"] for c in bf16) \
+            or not all(c["UTMALDG"] for c in f32):
+        raise AssertionError("the tma variant must run wgmma (HGMMA) in bf16 "
+                             "and load by TMA (UTMALDG) in both dtypes")
+
+
+def kernels_in_one_call(x, w, b) -> list[str]:
+    """The device kernels that one wrapper call enqueues, by name
+    (``torch.profiler``; the output's ``torch.empty`` launches none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_dense_relu(x, w, b)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "memcpy" not in e.name.lower()
+            and "memset" not in e.name.lower()]
 
 
 def phase_kernel_vs_plain() -> dict:
@@ -182,19 +241,45 @@ def phase_kernel_vs_plain() -> dict:
         worst[tag] = 0.0
         for shape in SHAPES:
             x, w, b = inputs(shape, dtype, seed=sum(shape))
+            m, k, n = shape
+            cfg = fused_dense.launch_config(m, n, k, dtype, x.data_ptr(),
+                                            w.data_ptr(),
+                                            fused_dense.sm_count(x.device.index))
+            want = "simt" if shape == (130, 257, 70) else "tma"
+            by_variant = dict(fused_dense.LAUNCHES_BY_VARIANT)
             got = fused_dense_relu(x, w, b)
             ref = fused_dense_relu_reference(x, w, b)
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs().max().item()
             ok = torch.allclose(got.float(), ref.float(), **KERNEL_TOL[tag])
-            say("kernel", f"{tag} {shape}: max_abs_err {err:.3e} "
-                          f"(tolerance {KERNEL_TOL[tag]}) "
-                          f"{'ok' if ok else 'FAIL'}")
-            if not (ok and got.shape == (shape[0], shape[2])
-                    and got.dtype == dtype):
+            moved = (fused_dense.LAUNCHES_BY_VARIANT[want]
+                     == by_variant[want] + 1)
+            same = torch.equal(fused_dense_relu(x, w, b), got) \
+                if m in BITWISE_M else None
+            say("kernel", f"{tag} {shape}: variant {cfg.variant} block_m "
+                          f"{cfg.block_m} cluster {cfg.cluster}; max_abs_err "
+                          f"{err:.3e} (tolerance {KERNEL_TOL[tag]}) "
+                          f"{'ok' if ok else 'FAIL'}"
+                          + ("" if same is None else
+                             f"; repeat call bitwise {'equal' if same else 'DIFFERENT'}"))
+            if not (ok and got.shape == (m, n) and got.dtype == dtype):
                 raise AssertionError(f"kernel disagrees with its plain "
                                      f"version at {tag} {shape}")
+            if cfg.variant != want or not moved:
+                raise AssertionError(f"{tag} {shape} launched variant "
+                                     f"{cfg.variant}, expected {want}")
+            if same is False:
+                raise AssertionError(f"{tag} {shape}: two calls on the same "
+                                     f"inputs differ")
             worst[tag] = max(worst[tag], err)
+        # one wrapper call, one kernel: the split-K sum stays on chip
+        x, w, b = inputs(SERVE_SHAPE, dtype, seed=3)
+        names = kernels_in_one_call(x, w, b)
+        say("kernel", f"{tag} {SERVE_SHAPE}: one call enqueued "
+                      f"{len(names)} kernel(s) {names} (torch.profiler)")
+        if len(names) != 1 or "fdr_tma_kernel" not in names[0]:
+            raise AssertionError(f"one {tag} call must enqueue exactly one "
+                                 f"tma kernel, got {names}")
     return worst
 
 
@@ -232,6 +317,7 @@ def phase_serve(tag: str) -> dict:
             outs = [None] * N_REQUESTS
             batches0 = batcher.stats.as_dict()["batches"]
             fused_dense.LAUNCHES = 0  # the main path's run starts here
+            fused_dense.LAUNCHES_BY_VARIANT.update(tma=0, simt=0)
 
             def worker(t):
                 for i in range(t, N_REQUESTS, N_THREADS):
@@ -247,6 +333,7 @@ def phase_serve(tag: str) -> dict:
                 t.join(timeout=300)
             wall = time.perf_counter() - t0
             launches = fused_dense.LAUNCHES  # ... and ends here
+            by_variant = dict(fused_dense.LAUNCHES_BY_VARIANT)
             stats = batcher.stats.as_dict()
             lat = batcher.latency.summary()
         finally:
@@ -266,7 +353,8 @@ def phase_serve(tag: str) -> dict:
           and serve_ok(got, ref, tag))
     say("serve", f"{tag}: {N_REQUESTS} HTTP predicts in {wall:.3f} s, "
                  f"{batches} batches (mean {stats['mean_batch_size']:.2f}), "
-                 f"kernel launches {launches}; logits vs use_pallas=False "
+                 f"kernel launches {launches} {by_variant}; logits vs "
+                 f"use_pallas=False "
                  f"max_abs_err {err:.3e} (max |logit| "
                  f"{np.abs(ref).max():.3f}; tolerance {SERVE_TOL[tag]}); "
                  f"request p50 {lat['p50']:.3f} ms p99 {lat['p99']:.3f} ms")
@@ -276,8 +364,11 @@ def phase_serve(tag: str) -> dict:
     if launches != batches or batches < 1 or stats["completed"] < N_REQUESTS:
         raise AssertionError(f"{tag}: {launches} kernel launches for "
                              f"{batches} predict batches")
+    if by_variant != {"tma": batches, "simt": 0}:
+        raise AssertionError(f"{tag}: serving must launch the tma variant "
+                             f"for every batch, got {by_variant}")
     return {"launches": launches, "batches": batches, "max_abs_err": err,
-            "latency_ms": lat, "wall_s": wall}
+            "latency_ms": lat, "wall_s": wall, "by_variant": by_variant}
 
 
 def phase_times(card: str, served: dict) -> dict:
@@ -321,7 +412,7 @@ def main() -> int:
         t = times[(tag, SERVE_SHAPE)]
         kernels.append({
             "name": f"fused_dense_relu[{tag}]", "route": "cuda",
-            "source": KERNEL_SRC, "replaces": TPU_KERNEL,
+            "variant": "tma", "source": KERNEL_SRC, "replaces": TPU_KERNEL,
             "launches": served[tag]["launches"],
             "max_abs_err": worst[tag], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` into
 ``distributed_tensorflow_tpu_torch/_build/`` (a build output, listed in
 ``.gitignore``) and loaded with ``ctypes``. The library's file name carries
-a hash of its source and flags, so an edited source rebuilds and an
-unchanged one is reused. ``build_all`` starts one ``nvcc`` per source, all
-at once. A failed build raises with nvcc's stderr.
+a hash of its source, the headers beside it and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. ``build_all``
+starts one ``nvcc`` per source, all at once. A failed build raises with
+nvcc's stderr.
 
 Nothing here runs at import: the CPU tests import every module, and this
 host need not have ``nvcc``.
@@ -45,8 +46,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to: the file name carries a hash of
+    the source, of every header in ``csrc/`` (``*.cuh``), and of the
+    flags, so editing any of them rebuilds."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

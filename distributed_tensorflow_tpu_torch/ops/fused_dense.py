@@ -8,25 +8,45 @@ here.
 
 ``fused_dense_relu`` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises; nothing falls back.
-``LAUNCHES`` counts the kernel's launches, so a run can show that its main
-path went through the kernel.
+``LAUNCHES`` counts the kernel's launches (``LAUNCHES_BY_VARIANT`` by
+variant), so a run can show that its main path went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 LAUNCHES = 0  # kernel launches since the last reset (a plain integer)
+# the same launches by variant: "tma" (TMA ring, wgmma in bf16, cluster
+# split-K) and "simt" (shapes TMA cannot describe)
+LAUNCHES_BY_VARIANT = {"tma": 0, "simt": 0}
 
-BLOCK_N = 64  # output columns per block, as in the kernel
-BLOCK_K = 32  # K depth per shared-memory round, as in the kernel
-BLOCKS_PER_SM = 4  # split-K target: grid of about this many blocks per SM
+BLOCK_N = 64  # output columns per CTA, as in the kernel (both variants)
+# K depth of one ring stage of variant "tma": one 128-byte row of x
+BLOCK_K = {torch.float32: 32, torch.bfloat16: 64}
+# M tiles of variant "tma": wgmma's N slot in bf16; in f32, two
+# warpgroups of 8 x 4 register tiles cover at most 64 rows
+BLOCK_M = {torch.float32: (8, 16, 32, 64),
+           torch.bfloat16: (8, 16, 32, 64, 128)}
+MAX_CLUSTER = 8  # CTAs that split one tile's K (the portable cluster size)
+CTAS_PER_SM = 1  # split-K target: at most one CTA per SM, one wave
+SIMT_BLOCK_M = (16, 64)  # M tiles of variant "simt"
+SIMT_BLOCK_K = 32  # K depth of one shared-memory round of variant "simt"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODE = {"tma": 0, "simt": 1}
 _sm_count: dict[int, int] = {}
+
+
+class LaunchConfig(NamedTuple):
+    variant: str  # "tma" or "simt"
+    block_m: int  # rows of M per CTA
+    cluster: int  # CTAs per cluster, each a split of K
+    grid: tuple[int, int, int]  # (splits, N tiles, M tiles)
 
 
 def fused_dense_relu_reference(x, w, b):
@@ -35,18 +55,64 @@ def fused_dense_relu_reference(x, w, b):
     return torch.relu(x.float() @ w.float() + b.float()).to(x.dtype)
 
 
-def launch_config(m: int, n: int, k: int, sms: int) -> tuple[int, int, int]:
-    """(block_m, splits, k_per_split) for an [m,k] @ [k,n] product on a
-    card with ``sms`` multiprocessors: a 16-row M tile for m <= 16, else
-    64 rows; K split into whole 32-deep chunks so the grid holds about
-    ``BLOCKS_PER_SM`` blocks per SM (the serving shapes have only 16
-    output tiles)."""
-    block_m = 16 if m <= 16 else 64
-    tiles = math.ceil(m / block_m) * math.ceil(n / BLOCK_N)
-    chunks = math.ceil(k / BLOCK_K)
-    want = max(1, min(chunks, math.ceil(BLOCKS_PER_SM * sms / tiles)))
-    per = math.ceil(chunks / want)
-    return block_m, math.ceil(chunks / per), per * BLOCK_K
+def tma_ok(n: int, k: int, dtype: torch.dtype, x_ptr: int, w_ptr: int) -> bool:
+    """True when TMA can describe x [m,k] and w [k,n]: 16-byte aligned
+    base pointers and row strides."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    return (k * es) % 16 == 0 and (n * es) % 16 == 0 and x_ptr % 16 == 0 \
+        and w_ptr % 16 == 0
+
+
+def split_chunks(rank: int, splits: int, chunks: int) -> range:
+    """The K chunks that split ``rank`` of ``splits`` sums, as the kernel
+    cuts them."""
+    return range(rank * chunks // splits, (rank + 1) * chunks // splits)
+
+
+def _cluster(tiles: int, chunks: int, sms: int) -> int:
+    """CTAs per cluster, each a split of K: the largest power of two up to
+    ``MAX_CLUSTER`` and ``chunks`` that keeps ``tiles`` clusters within
+    ``CTAS_PER_SM`` CTAs per SM."""
+    cap = max(1, min(MAX_CLUSTER, chunks, CTAS_PER_SM * sms // tiles))
+    return 1 << (cap.bit_length() - 1)
+
+
+def launch_config(m: int, n: int, k: int, dtype: torch.dtype, x_ptr: int,
+                  w_ptr: int, sms: int) -> LaunchConfig:
+    """The kernel variant and launch for an [m,k] @ [k,n] product of x
+    and w at addresses ``x_ptr`` and ``w_ptr`` on a card with ``sms``
+    multiprocessors (`sm_count`).
+
+    Variant "tma" whenever TMA can describe the operands (`tma_ok`). Its M
+    tile is the smallest in ``BLOCK_M[dtype]`` that holds m. Past the
+    largest, bf16 takes the largest; f32 takes the smallest that leaves
+    room for two K splits per tile on a grid of ``CTAS_PER_SM`` per SM,
+    since its FMA loop ran faster as two splits than as one split of
+    wider tiles or four of narrower ones (M = 128 and 256 on an H100).
+    K is split over a cluster of CTAs (`_cluster`; N = 1024 gives only
+    16 tiles at m <= 8, so 8 splits). Otherwise variant "simt": a 16-row
+    M tile for m <= 16, else 64 rows, and K split the same way over
+    ``SIMT_BLOCK_K``-deep chunks."""
+    n_tiles = math.ceil(n / BLOCK_N)
+    if not tma_ok(n, k, dtype, x_ptr, w_ptr):
+        block_m = SIMT_BLOCK_M[0] if m <= SIMT_BLOCK_M[0] else SIMT_BLOCK_M[1]
+        chunks = math.ceil(k / SIMT_BLOCK_K)
+        variant = "simt"
+    else:
+        tiles = BLOCK_M[dtype]
+        if m <= tiles[-1]:
+            block_m = next(bm for bm in tiles if bm >= m)
+        elif dtype == torch.float32:
+            block_m = next((bm for bm in tiles
+                            if 2 * n_tiles * math.ceil(m / bm)
+                            <= CTAS_PER_SM * sms), tiles[-1])
+        else:
+            block_m = tiles[-1]
+        chunks = math.ceil(k / BLOCK_K[dtype])
+        variant = "tma"
+    m_tiles = math.ceil(m / block_m)
+    cluster = _cluster(n_tiles * m_tiles, chunks, sms)
+    return LaunchConfig(variant, block_m, cluster, (cluster, n_tiles, m_tiles))
 
 
 def _check(x, w, b):
@@ -71,12 +137,26 @@ def _library():
     lib = load_library("fused_dense_relu")
     fn = lib.fused_dense_relu_launch
     if fn.argtypes is None:  # first use of this library
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.fused_dense_relu_error_string.argtypes = [ctypes.c_int]
         lib.fused_dense_relu_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def sm_count(dev: int) -> int:
+    """The multiprocessors of CUDA device ``dev``."""
+    if dev not in _sm_count:
+        _sm_count[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _sm_count[dev]
+
+
+def _raise(lib, err: int, what: str):
+    raise RuntimeError(f"fused_dense_relu {what} failed: "
+                       f"{lib.fused_dense_relu_error_string(err).decode()} "
+                       f"(code {err})")
 
 
 def _launch(x, w, b):
@@ -89,25 +169,19 @@ def _launch(x, w, b):
     m, k = x.shape
     n = w.shape[1]
     dev = x.device.index
-    if dev not in _sm_count:
-        _sm_count[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    block_m, splits, k_per_split = launch_config(m, n, k, _sm_count[dev])
+    cfg = launch_config(m, n, k, x.dtype, x.data_ptr(), w.data_ptr(),
+                        sm_count(dev))
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fused_dense_relu_launch(
-        _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), ws.data_ptr() if ws is not None else None,
-        m, n, k, block_m, splits, k_per_split, dev, stream)
+        _DTYPE_CODE[x.dtype], _VARIANT_CODE[cfg.variant], x.data_ptr(),
+        w.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, cfg.block_m,
+        cfg.cluster, dev, stream)
     if err != 0:
-        raise RuntimeError(
-            f"fused_dense_relu kernel launch failed: "
-            f"{lib.fused_dense_relu_error_string(err).decode()} "
-            f"(M={m} N={n} K={k} block_m={block_m} splits={splits})")
+        _raise(lib, err, f"kernel launch (M={m} N={n} K={k} {cfg})")
     LAUNCHES += 1
+    LAUNCHES_BY_VARIANT[cfg.variant] += 1
     return out
 
 

@@ -14,12 +14,19 @@ import pytest
 import torch
 
 from distributed_tensorflow_tpu.ops import pallas_ops
-from distributed_tensorflow_tpu_torch.ops import fused_dense
+from distributed_tensorflow_tpu_torch.ops import _build, fused_dense
 from distributed_tensorflow_tpu_torch.ops.fused_dense import (
+    BLOCK_K,
+    BLOCK_N,
+    MAX_CLUSTER,
     fused_dense_relu,
     fused_dense_relu_reference,
     launch_config,
+    split_chunks,
 )
+
+WD1_M = (1, 2, 4, 8, 128, 256)  # the serving buckets and the training batches
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _inputs(shape, seed=0):
@@ -97,17 +104,88 @@ def test_wrapper_rejects_mismatched_operands():
         fused_dense_relu(x, w.double(), b)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,n,k", [(1, 1024, 3136), (8, 1024, 3136),
                                    (256, 1024, 3136), (130, 70, 257)])
-def test_launch_config_covers_k_and_fills_the_card(m, n, k):
-    block_m, splits, k_per_split = launch_config(m, n, k, sms=132)
-    assert block_m == (16 if m <= 16 else 64)
-    assert k_per_split % fused_dense.BLOCK_K == 0
-    # every K index in exactly one split, no empty split
-    assert (splits - 1) * k_per_split < k <= splits * k_per_split
-    tiles = -(-m // block_m) * -(-n // fused_dense.BLOCK_N)
-    chunks = -(-k // fused_dense.BLOCK_K)
-    assert tiles * splits >= min(132, tiles * chunks)
+def test_launch_config_covers_k_and_fills_the_card(m, n, k, dtype):
+    cfg = launch_config(m, n, k, dtype, x_ptr=0, w_ptr=0, sms=132)
+    splits, n_tiles, m_tiles = cfg.grid
+    assert splits == cfg.cluster
+    # the grid covers the output
+    assert n_tiles * BLOCK_N >= n > (n_tiles - 1) * BLOCK_N
+    assert m_tiles * cfg.block_m >= m > (m_tiles - 1) * cfg.block_m
+    assert cfg.variant == ("simt" if (m, n, k) == (130, 70, 257) else "tma")
+    # every K chunk in exactly one split, no empty split
+    depth = fused_dense.SIMT_BLOCK_K if cfg.variant == "simt" else BLOCK_K[dtype]
+    chunks = -(-k // depth)
+    parts = [split_chunks(r, splits, chunks) for r in range(splits)]
+    assert [c for p in parts for c in p] == list(range(chunks))
+    assert all(len(p) > 0 for p in parts)
+    # a portable cluster, a power of two; at most one CTA per SM
+    assert 1 <= cfg.cluster <= MAX_CLUSTER <= 8
+    assert cfg.cluster & (cfg.cluster - 1) == 0
+    assert splits * n_tiles * m_tiles <= 132
+    # ... and the card is at least half full unless K is too short to split
+    assert (splits * n_tiles * m_tiles > 132 // 2 or cfg.cluster == MAX_CLUSTER
+            or 2 * cfg.cluster > chunks)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", WD1_M)
+def test_launch_config_takes_tma_at_every_wd1_shape(m, dtype):
+    cfg = launch_config(m, 1024, 3136, dtype, x_ptr=256, w_ptr=512, sms=132)
+    assert cfg.variant == "tma"
+    tiles = fused_dense.BLOCK_M[dtype]
+    assert cfg.block_m in tiles
+    ctas = cfg.grid[0] * cfg.grid[1] * cfg.grid[2]
+    if m <= 8:  # 16 output tiles: K split 8 ways streams w from 128 SMs
+        assert cfg.block_m == 8 and cfg.cluster == MAX_CLUSTER
+        assert ctas >= 128
+    elif dtype == torch.float32:  # past 64 rows: two K splits per tile
+        assert cfg.cluster == 2 and ctas == 128
+    else:  # bf16: the widest tile, wgmma's N slot
+        assert cfg.block_m == tiles[-1]
+    assert ctas <= 132
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,n,k,x_off,w_off", [
+    (130, 70, 257, 0, 0),      # row strides not multiples of 16 bytes
+    (8, 1024, 3136, 4, 0),     # x's base 4 bytes past a 16-byte boundary
+    (8, 1024, 3136, 0, 8),     # w's base 8 bytes past one
+    (8, 1024, 3138, 0, 0),     # x's rows 3138 elements long
+])
+def test_launch_config_takes_simt_where_tma_cannot_describe(m, n, k, x_off,
+                                                            w_off, dtype):
+    cfg = launch_config(m, n, k, dtype, x_ptr=1024 + x_off, w_ptr=2048 + w_off,
+                        sms=132)
+    es = torch.tensor([], dtype=dtype).element_size()
+    if dtype == torch.float32 and k == 3138:
+        assert (k * es) % 16 != 0
+    assert cfg.variant == "simt"
+    assert cfg.block_m in fused_dense.SIMT_BLOCK_M
+    # K split over a cluster as in variant "tma": a power of two, <= 8
+    assert cfg.cluster in (1, 2, 4, 8) and cfg.grid[0] == cfg.cluster
+
+
+def test_library_path_hashes_headers_and_flags(tmp_path, monkeypatch):
+    # editing a header, the source or the flags must rebuild the library
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = _build.library_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    third = _build.library_path("k")
+    assert third != second
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    fourth = _build.library_path("k")
+    assert fourth != third
+    monkeypatch.setattr(_build, "NVCC_FLAGS", (*_build.NVCC_FLAGS, "-lineinfo"))
+    assert _build.library_path("k") != fourth
 
 
 @pytest.fixture
@@ -122,16 +200,26 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(8, 3136, 1024), (130, 257, 70)])
+@pytest.mark.parametrize("shape", [(1, 3136, 1024), (8, 3136, 1024),
+                                   (64, 3136, 1024), (128, 3136, 1024),
+                                   (256, 3136, 1024), (130, 257, 70)])
 def test_kernel_matches_plain_version_on_card(cuda_device, shape, dtype):
     x, w, b = (torch.from_numpy(a).to(cuda_device, dtype)
                for a in _inputs(shape, seed=4))
+    variant = launch_config(shape[0], shape[2], shape[1], dtype, x.data_ptr(),
+                            w.data_ptr(),
+                            fused_dense.sm_count(x.device.index)).variant
+    assert variant == ("simt" if shape == (130, 257, 70) else "tma")
     before = fused_dense.LAUNCHES
+    by_variant = dict(fused_dense.LAUNCHES_BY_VARIANT)
     got = fused_dense_relu(x, w, b)
     torch.cuda.synchronize()
     assert fused_dense.LAUNCHES == before + 1
+    assert fused_dense.LAUNCHES_BY_VARIANT[variant] == by_variant[variant] + 1
     tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
            else dict(rtol=2 ** -7, atol=1e-3))
     torch.testing.assert_close(got.float(),
                                fused_dense_relu_reference(x, w, b).float(),
                                **tol)
+    # the split-K sum is taken in a fixed order: a second call is bitwise equal
+    assert torch.equal(fused_dense_relu(x, w, b), got)

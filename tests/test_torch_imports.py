@@ -1,5 +1,6 @@
 """Import hygiene of the port: every module of
-``distributed_tensorflow_tpu_torch`` and ``chip_smoke.py`` import in a
+``distributed_tensorflow_tpu_torch``, ``chip_smoke.py`` and
+``port_kernel_study.py`` import in a
 fresh interpreter without pulling in ``jax`` or the JAX package, and the
 smoke script refuses to run without a card."""
 
@@ -38,8 +39,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "distributed_tensorflow_tpu_torch.serving.__main__" in names
     assert "distributed_tensorflow_tpu_torch.ops.fused_dense" in names
     proc = subprocess.run([sys.executable, "-c", _PROBE, *names,
-                           "chip_smoke"], cwd=REPO, capture_output=True,
-                          text=True, timeout=120)
+                           "chip_smoke", "port_kernel_study"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "BAD []" in proc.stdout
 
