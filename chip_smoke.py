@@ -23,11 +23,24 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    against the ``use_pallas=False`` forward on the card, and checks that
    the kernel launched once per predict batch, every time as the "tma"
    variant;
-5. times: per shape the kernel, its plain version and ``torch.addmm`` +
+5. train: through ``train(FLAGS)``, the entry point of ``python -m
+   distributed_tensorflow_tpu_torch.mnist_dist``, in f32 and in bf16
+   (adam at 1e-3, batch 128, synthetic data from an empty ``--data_dir``):
+   the kernel's gradient against the plain version's autograd at the
+   training and test-eval shapes; 20 steps with ``--pallas`` against 20
+   without, loss by loss, from one init and one batch stream, and against
+   20 with the kernel's plain version in the kernel's place; 300 steps
+   with ``--pallas`` that must reach test accuracy 0.98, with the kernel
+   launched once per forward pass (train steps, display evals, test-eval
+   batches), every time as the "tma" variant; the final checkpoint
+   restored and resumed by a second ``train``; then steady-state
+   images/s and ms/step with and without ``--pallas`` in turns, and the
+   device's busy share over 20 steps from ``torch.profiler``;
+6. times: per shape the kernel, its plain version and ``torch.addmm`` +
    ``relu_`` (a yardstick the port never calls), each from CUDA events
    around a CUDA graph of many launches over rotating buffers larger than
    L2, beside the least time the card could take;
-6. the ``kernels`` JSON line, the card line, and ``{"ok": true, ...}`` last.
+7. the ``kernels`` JSON line, the card line, and ``{"ok": true, ...}`` last.
 
 Any failed phase raises, so the script exits non-zero. f32 runs in full
 f32: TF32 is turned off for cuDNN and cuBLAS.
@@ -35,6 +48,8 @@ f32: TF32 is turned off for cuDNN and cuBLAS.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -51,9 +66,12 @@ import numpy as np
 import torch
 
 from distributed_tensorflow_tpu_torch import flags
-from distributed_tensorflow_tpu_torch.checkpoint import save_checkpoint
-from distributed_tensorflow_tpu_torch.data import synthetic_digits
-from distributed_tensorflow_tpu_torch.models import DeepCNN
+from distributed_tensorflow_tpu_torch.checkpoint import (
+    restore_with_fallback,
+    save_checkpoint,
+)
+from distributed_tensorflow_tpu_torch.data import datasets, synthetic_digits
+from distributed_tensorflow_tpu_torch.models import DeepCNN, cnn
 from distributed_tensorflow_tpu_torch.ops import _build, fused_dense
 from distributed_tensorflow_tpu_torch.ops.fused_dense import (
     fused_dense_relu,
@@ -63,6 +81,8 @@ from distributed_tensorflow_tpu_torch.serving.__main__ import (
     build_serving_stack,
 )
 from distributed_tensorflow_tpu_torch.serving.server import InferenceServer
+from distributed_tensorflow_tpu_torch.training import train_state
+from distributed_tensorflow_tpu_torch.training.loop import train
 from distributed_tensorflow_tpu_torch.utils.pytree import params_to_numpy
 
 # H100 SXM data-sheet peaks at 700 W
@@ -71,11 +91,13 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 L2_BYTES = 50 * 2 ** 20
 
 # (M, K, N): serving buckets 1 and 8, the training batch 128, a large
-# batch, and a ragged shape that TMA cannot describe (variant "simt")
+# batch, the test-eval batch 1000, and a ragged shape that TMA cannot
+# describe (variant "simt")
 SHAPES = [(1, 3136, 1024), (8, 3136, 1024), (128, 3136, 1024),
-          (256, 3136, 1024), (130, 257, 70)]
+          (256, 3136, 1024), (1000, 3136, 1024), (130, 257, 70)]
 SERVE_SHAPE = (8, 3136, 1024)  # the largest predict bucket (--serve_max_batch 8)
-BITWISE_M = (8, 256)  # shapes whose repeat call must be bitwise equal
+TRAIN_SHAPE = (128, 3136, 1024)  # --batch_size 128
+BITWISE_M = (8, 256, 1000)  # shapes whose repeat call must be bitwise equal
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # kernel vs plain: f32 is a reordered float32 sum; bf16 both round one
 # float32 sum to bfloat16 (one ulp = 2**-7 relative), 1e-3 near zero
@@ -88,6 +110,28 @@ KERNEL_TOL = {"f32": dict(rtol=1e-4, atol=1e-4),
 # logits rounded to bfloat16, so the error scales with the logits'
 # magnitude, not each logit's own: max |err| <= 2e-2 * max |logit|
 SERVE_TOL = {"f32": dict(rtol=1e-4, atol=1e-4), "bf16": dict(scale=2e-2)}
+
+# the kernel's gradient on dyadic inputs (every sum exact in float32 in
+# any order): equal but for rounding the bf16 outputs, half a bf16 ulp
+GRAD_TOL = dict(rtol=2 ** -8, atol=1e-6)
+# --pallas with the kernel against --pallas with its plain version in the
+# kernel's place (the stand-in: the same single rounding of a float32 sum,
+# autograd's backward), per-step display loss over 20 adam steps:
+# |diff| <= tol * max(1, |loss|). Only the summation order differs, which
+# read 1.2e-4 (f32) and 1.6e-3 (bf16) on an H100 (runs of this script)
+STAND_IN_TOL = {"f32": 1e-3, "bf16": 5e-3}
+# --pallas against the plain path, the same measure. f32: reordered
+# float32 sums. bf16: the two paths round wd1's output at different
+# places (the plain one before its float32 bias, the reference's rounding,
+# ROADMAP queue 3), and the loss climbs from about 5 to 12 before it
+# falls, which compounds that: the stand-in, with no kernel in it, reads
+# 1.98e-2 from the plain path at step 7, the kernel 2.03e-2. The limit
+# is the stand-in's reading plus the kernel's STAND_IN_TOL
+TRAJ_TOL = {"f32": 1e-3, "bf16": 2.5e-2}
+TRAJ_STEPS, TRAIN_STEPS, RESUME_STEPS, TIME_STEPS = 20, 300, 10, 150
+ACCURACY_MIN = 0.98  # test accuracy after TRAIN_STEPS
+PROFILE_STEPS = 20
+EVAL_BATCH = 1000  # the loop's test-eval batch
 
 N_REQUESTS, N_THREADS = 64, 8
 KERNEL_SRC = "distributed_tensorflow_tpu_torch/ops/csrc/fused_dense_relu.cu"
@@ -371,6 +415,248 @@ def phase_serve(tag: str) -> dict:
             "latency_ms": lat, "wall_s": wall, "by_variant": by_variant}
 
 
+def dyadic_inputs(shape, dtype, seed):
+    """x, w, b and an upstream gradient g whose entries are small
+    multiples of powers of two: every sum of their products is exact in
+    float32, so the ReLU mask cannot differ between two summation
+    orders."""
+    m, k, n = shape
+    r = np.random.default_rng(seed)
+    arrs = (r.integers(-8, 9, (m, k)) / 8, r.integers(-8, 9, (k, n)) / 256,
+            r.integers(-8, 9, n) / 64, r.integers(-8, 9, (m, n)) / 8)
+    return [torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
+            for a in arrs]
+
+
+def phase_train_grad() -> dict:
+    """The kernel's forward and the port's backward against autograd
+    through the plain version, at the training and test-eval shapes."""
+    worst = {}
+    for tag, dtype in DTYPES.items():
+        worst[tag] = 0.0
+        for shape in (TRAIN_SHAPE, (EVAL_BATCH, 3136, 1024)):
+            x, w, b, g = dyadic_inputs(shape, dtype, seed=shape[0])
+            for t in (x, w, b):
+                t.requires_grad_()
+            y = fused_dense_relu(x, w, b)
+            y.backward(g)
+            got = [y] + [t.grad for t in (x, w, b)]
+            for t in (x, w, b):
+                t.grad = None
+            ref = fused_dense_relu_reference(x, w, b)
+            ref.backward(g)
+            want = [ref] + [t.grad for t in (x, w, b)]
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, r in zip(("y", "dx", "dw", "db"), got, want):
+                errs[name] = (a.float() - r.float()).abs().max().item()
+                if not (a.dtype == r.dtype == dtype and torch.allclose(
+                        a.float(), r.float(), **GRAD_TOL)):
+                    raise AssertionError(f"{tag} {shape}: {name} through the "
+                                         f"kernel disagrees with autograd "
+                                         f"through the plain version")
+            say("train", f"{tag} {shape} gradient vs plain autograd: max_abs_"
+                         f"err " + ", ".join(f"{k} {v:.3e}"
+                                             for k, v in errs.items())
+                         + f" (tolerance {GRAD_TOL}) ok")
+            worst[tag] = max(worst[tag], *errs.values())
+    return worst
+
+
+class TrainRun:
+    """``train(FLAGS)`` with the slice's settings in ``logdir``: adam at
+    1e-3, batch 128, synthetic data from the empty ``data_dir``. Its
+    stdout is kept in ``out``; the display losses are read back from
+    ``metrics.jsonl``."""
+
+    def __init__(self, logdir: str, data_dir: str, tag: str, pallas: bool,
+                 *extra: str):
+        flags.define_reference_flags()
+        flags.FLAGS._reset()
+        flags.FLAGS._parse(
+            ["--device", "cuda", "--logdir", logdir, "--data_dir", data_dir,
+             "--optimizer", "adam", "--learning_rate", "0.001",
+             "--batch_size", "128", "--save_model_secs", "100000", *extra]
+            + (["--pallas"] if pallas else [])
+            + (["--bf16"] if tag == "bf16" else []))
+        self.logdir = logdir
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            self.result = train(flags.FLAGS)
+        self.out = buf.getvalue()
+
+    def records(self, key: str) -> dict:
+        with open(os.path.join(self.logdir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        return {r["step"]: r[key] for r in recs if key in r}
+
+
+def forwards(start: int, stop: int, display_step: int, test_n: int) -> int:
+    """The forward passes of a run from step ``start`` to ``stop``: one
+    per train step, one per display eval, one per test-eval batch."""
+    displays = sum(1 for s in range(start, stop) if s % display_step == 0)
+    return (stop - start) + displays + math.ceil(test_n / EVAL_BATCH)
+
+
+@contextlib.contextmanager
+def plain_in_kernel_place():
+    """The model calls the kernel's plain version where it would launch
+    the kernel."""
+    cnn.fused_dense_relu = fused_dense_relu_reference
+    try:
+        yield
+    finally:
+        cnn.fused_dense_relu = fused_dense_relu
+
+
+def rel_diffs(got: dict, want: dict) -> list[float]:
+    """Per display step, |got - want| / max(1, |want|)."""
+    return [abs(got[s] - want[s]) / max(1.0, abs(want[s]))
+            for s in sorted(want)]
+
+
+def phase_train(tag: str, work: str, data_dir: str) -> dict:
+    """Trajectory, convergence with launch counts, checkpoint and resume."""
+    steps = TRAJ_STEPS
+
+    def trajectory(name, pallas):
+        run = TrainRun(os.path.join(work, f"{tag}-traj-{name}"), data_dir,
+                       tag, pallas, "--training_iter", str(steps),
+                       "--display_step", "1", "--keep_prob", "1",
+                       "--test_eval", "false")
+        return run.records("mini_batch_loss")
+
+    plain, kern = trajectory("plain", False), trajectory("kernel", True)
+    launched = fused_dense.LAUNCHES
+    with plain_in_kernel_place():
+        stand = trajectory("stand-in", True)
+    if fused_dense.LAUNCHES != launched:
+        raise AssertionError(f"{tag}: the stand-in run launched the kernel")
+    if not sorted(plain) == sorted(kern) == sorted(stand) == \
+            list(range(steps)):
+        raise AssertionError(f"{tag}: display steps {sorted(kern)} with "
+                             f"--pallas, {sorted(plain)} without")
+    diffs = rel_diffs(kern, plain)
+    stand_diffs, kern_stand = rel_diffs(stand, plain), rel_diffs(kern, stand)
+    say("train", f"{tag}: {steps} steps with --pallas vs without, keep_prob "
+                 f"1: loss {plain[0]:.6f} -> {plain[steps - 1]:.6f} (plain), "
+                 f"{kern[0]:.6f} -> {kern[steps - 1]:.6f} (--pallas); max "
+                 f"|diff|/max(1,|loss|) {max(diffs):.3e} (tolerance "
+                 f"{TRAJ_TOL[tag]}); per step: plain loss "
+                 f"{[round(plain[s], 4) for s in sorted(plain)]}, diff "
+                 f"{[float(f'{d:.3g}') for d in diffs]}")
+    say("train", f"{tag}: the plain version in the kernel's place vs "
+                 f"without --pallas: max {max(stand_diffs):.3e}, per step "
+                 f"{[float(f'{d:.3g}') for d in stand_diffs]}; the kernel "
+                 f"vs that stand-in: max {max(kern_stand):.3e} (tolerance "
+                 f"{STAND_IN_TOL[tag]}), per step "
+                 f"{[float(f'{d:.3g}') for d in kern_stand]}")
+    if max(diffs) > TRAJ_TOL[tag]:
+        raise AssertionError(f"{tag}: the --pallas trajectory leaves the "
+                             f"plain path's")
+    if max(kern_stand) > STAND_IN_TOL[tag]:
+        raise AssertionError(f"{tag}: the kernel's trajectory leaves its "
+                             f"plain version's")
+
+    logdir = os.path.join(work, f"{tag}-main")
+    test_n = datasets.SYNTHETIC_TEST
+    fused_dense.LAUNCHES = 0  # the main path's run starts here
+    fused_dense.LAUNCHES_BY_VARIANT.update(tma=0, simt=0)
+    main = TrainRun(logdir, data_dir, tag, True, "--training_iter",
+                    str(TRAIN_STEPS))
+    launches = fused_dense.LAUNCHES  # ... and ends here
+    by_variant = dict(fused_dense.LAUNCHES_BY_VARIANT)
+    res = main.result
+    want = forwards(0, TRAIN_STEPS, 100, test_n)
+    for line in main.out.splitlines():
+        if line.startswith(("job: ", "test accuracy")):
+            say("train", f"{tag}: {line}")
+    acc = res.test_metrics["accuracy"]
+    say("train", f"{tag}: {TRAIN_STEPS} steps with --pallas, default "
+                 f"keep_prob: test accuracy {acc:.4f} (need >= "
+                 f"{ACCURACY_MIN}); kernel launches {launches} {by_variant} "
+                 f"for {want} forward passes")
+    if res.final_step != TRAIN_STEPS or not acc >= ACCURACY_MIN:
+        raise AssertionError(f"{tag}: step {res.final_step}, test accuracy "
+                             f"{acc}")
+    if launches != want or by_variant != {"tma": want, "simt": 0}:
+        raise AssertionError(f"{tag}: {launches} launches {by_variant} for "
+                             f"{want} forward passes, all to be tma")
+
+    # the final checkpoint restores into a fresh state, and a second
+    # train() resumes from its step
+    model = DeepCNN(compute_dtype=torch.bfloat16 if tag == "bf16" else None)
+    template = train_state.create_train_state(model, train_state.adam(1e-3))
+    restored = restore_with_fallback(logdir, template)
+    if restored is None or restored[1] != TRAIN_STEPS:
+        raise AssertionError(f"{tag}: the final checkpoint did not restore")
+    fused_dense.LAUNCHES = 0
+    stop = TRAIN_STEPS + RESUME_STEPS
+    again = TrainRun(logdir, data_dir, tag, True, "--training_iter", str(stop))
+    resumed = again.records("recovery_restore_step")
+    want_again = forwards(TRAIN_STEPS, stop, 100, test_n)
+    say("train", f"{tag}: resumed from step {resumed.get(TRAIN_STEPS)} to "
+                 f"{again.result.final_step}, {fused_dense.LAUNCHES} launches "
+                 f"for {want_again} forward passes, test accuracy "
+                 f"{again.result.test_metrics['accuracy']:.4f}")
+    if resumed.get(TRAIN_STEPS) != TRAIN_STEPS or \
+            again.result.final_step != stop or \
+            fused_dense.LAUNCHES != want_again:
+        raise AssertionError(f"{tag}: the resume did not continue from "
+                             f"step {TRAIN_STEPS}")
+    return {"launches": launches, "accuracy": acc,
+            "traj_max_rel_diff": max(diffs),
+            "stand_in_max_rel_diff": max(stand_diffs),
+            "kernel_vs_stand_in_max_rel_diff": max(kern_stand)}
+
+
+def phase_train_times(card: str, work: str, data_dir: str) -> dict:
+    """Steady-state throughput, with and without --pallas in turns, and
+    the device's busy share over PROFILE_STEPS steps."""
+    rates = {}
+    for tag in DTYPES:
+        for i, pallas in enumerate((False, True, True, False)):
+            run = TrainRun(os.path.join(work, f"{tag}-time-{i}"), data_dir,
+                           tag, pallas, "--training_iter", str(TIME_STEPS),
+                           "--display_step", str(10 * TIME_STEPS),
+                           "--test_eval", "false")
+            rates.setdefault((tag, pallas), []).append(
+                run.result.images_per_sec)
+            split = {k: run.records(f"step_{k}_s")[TIME_STEPS] * 1e3
+                     for k in ("host_wait", "dispatch", "device")}
+            say("times", f"{tag} train {'--pallas' if pallas else 'plain'} "
+                         f"run {i}: {run.result.images_per_sec:.1f} images/s;"
+                         f" per step: " + ", ".join(
+                             f"{k} {v:.4f} ms" for k, v in split.items())
+                         + " (StepTimer)")
+        for pallas in (False, True):
+            run = TrainRun(os.path.join(work, f"{tag}-prof-{pallas}"),
+                           data_dir, tag, pallas, "--training_iter",
+                           str(2 * PROFILE_STEPS), "--display_step",
+                           str(10 * TIME_STEPS), "--test_eval", "false",
+                           "--profile_dir",
+                           os.path.join(work, f"{tag}-prof-{pallas}", "trace"),
+                           "--profile_steps", str(PROFILE_STEPS))
+            busy = run.result.device_busy_share
+            for line in run.out.splitlines():
+                if line.strip() and not line.startswith(("job: ", "Optim")):
+                    say("profile", f"{tag} {'--pallas' if pallas else 'plain'}"
+                                   f" | {line}")
+            per = rates[(tag, pallas)]
+            mean = sum(per) / len(per)
+            rates[(tag, pallas)] = {"images_per_sec": per,
+                                    "ms_per_step": 128e3 / mean,
+                                    "busy_share": busy}
+            say("times", f"{tag} train {'--pallas' if pallas else 'plain   '}"
+                         f": {', '.join(f'{r:.1f}' for r in per)} images/s/GPU"
+                         f" over steps 1-{TIME_STEPS - 1} of {len(per)} runs "
+                         f"(mean {mean:.1f}, {128e3 / mean:.4f} ms/step); "
+                         f"device busy share over {PROFILE_STEPS} steps "
+                         f"{'not measured' if busy is None else f'{busy:.4f}'}"
+                         f" (torch.profiler) | {card}")
+    return rates
+
+
 def phase_times(card: str, served: dict) -> dict:
     for tag, run in served.items():
         lat = run["latency_ms"]
@@ -406,15 +692,23 @@ def main() -> int:
     phase_build()
     worst = phase_kernel_vs_plain()
     served = {tag: phase_serve(tag) for tag in DTYPES}
+    grad_worst = phase_train_grad()
+    with tempfile.TemporaryDirectory() as work:
+        data_dir = os.path.join(work, "empty")
+        os.makedirs(data_dir)
+        trained = {tag: phase_train(tag, work, data_dir) for tag in DTYPES}
+        phase_train_times(card, work, data_dir)
     times = phase_times(card, served)
     kernels = []
     for tag in DTYPES:
         t = times[(tag, SERVE_SHAPE)]
+        by_path = {"serve": served[tag]["launches"],
+                   "train": trained[tag]["launches"]}
         kernels.append({
             "name": f"fused_dense_relu[{tag}]", "route": "cuda",
             "variant": "tma", "source": KERNEL_SRC, "replaces": TPU_KERNEL,
-            "launches": served[tag]["launches"],
-            "max_abs_err": worst[tag], "ms": t["ms"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(worst[tag], grad_worst[tag]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": list(SERVE_SHAPE)})

@@ -9,7 +9,9 @@ the latest step and old steps are garbage-collected past ``max_to_keep``.
 Restore walks the same verify-quarantine-fallback ladder: the newest step
 whose arrays pass their CRCs restores; a damaged set is renamed to
 ``*.corrupt`` and the next older one is tried. A file written by either
-package restores in the other.
+package restores in the other. ``Checkpointer`` is the Supervisor's
+time-cadenced, chief-only writer; its background-thread mode
+(``--async_checkpoint``) is not ported, so every save is synchronous.
 
 The sharded format (one file per process, ``ckpt-{step}.shardP-of-N``) is
 not ported yet: a directory holding one raises
@@ -196,6 +198,17 @@ def latest_checkpoint(directory: str) -> tuple[str, int] | None:
     return None
 
 
+def checkpoint_keys(path: str) -> set[str]:
+    """The stored array keys of one monolithic file (bf16 tags kept,
+    manifest dropped), read without loading the arrays."""
+    if _SHARD_RE.fullmatch(os.path.basename(path)):
+        raise ShardedCheckpointNotPorted(
+            f"{path}: sharded checkpoints are not yet ported to "
+            f"distributed_tensorflow_tpu_torch")
+    with np.load(path) as z:
+        return set(z.files) - {_MANIFEST}
+
+
 def load_flat(path: str) -> dict[str, np.ndarray]:
     """Flat path-keyed arrays of one monolithic file, CRC-verified when it
     carries a manifest."""
@@ -351,3 +364,56 @@ def restore_with_fallback(directory: str, template, *,
             step=step, path=path, fallback_depth=depth,
             quarantined=tuple(quarantined), rescans=rescans,
             time_s=time.monotonic() - t0)
+
+
+def max_to_keep_from_flags(FLAGS) -> int:
+    """The one flag-to-feature mapping for ``--max_to_keep``."""
+    return int(FLAGS.max_to_keep)
+
+
+class Checkpointer:
+    """Time-cadenced, chief-only checkpointing (Supervisor parity).
+
+    ``maybe_save`` is called every loop iteration; it writes only when
+    ``save_model_secs`` have elapsed since the last save
+    (MNISTDist.py:165; 0 turns the cadence off) and only on the chief
+    (``:159``). ``save`` forces a write (the exit path). Writes are
+    synchronous on the calling thread."""
+
+    def __init__(self, directory: str, is_chief: bool = True,
+                 save_model_secs: int = 600, max_to_keep: int = 5):
+        self.directory = directory
+        self.is_chief = is_chief
+        self.save_model_secs = save_model_secs
+        self.max_to_keep = max_to_keep
+        self._last_save = time.time()
+        self.last_restore_report: RestoreReport | None = None
+
+    def cadence_due(self) -> bool:
+        return (self.is_chief and self.save_model_secs > 0
+                and time.time() - self._last_save >= self.save_model_secs)
+
+    def maybe_save(self, state, step: int) -> str | None:
+        """The path of a checkpoint written now, else None."""
+        if not self.cadence_due():
+            return None
+        return self.save(state, step)
+
+    def save(self, state, step: int) -> str | None:
+        """Forced write; None on a non-chief."""
+        if not self.is_chief:
+            return None
+        path = save_checkpoint(self.directory, state, step, self.max_to_keep)
+        self._last_save = time.time()
+        return path
+
+    def restore(self, template):
+        """Verified restore through the fallback ladder; the RestoreReport
+        lands in ``last_restore_report``. (state, step) or None."""
+        out = restore_with_fallback(self.directory, template)
+        if out is None:
+            self.last_restore_report = None
+            return None
+        state, step, report = out
+        self.last_restore_report = report
+        return state, step

@@ -1,5 +1,15 @@
-"""Data: the procedural offline digit set (numpy only)."""
+"""Data: the reference's datasets (IDX files or procedural digits) and the
+pinned-memory prefetch to the card."""
 
+from distributed_tensorflow_tpu_torch.data.datasets import (  # noqa: F401
+    DataSet,
+    Datasets,
+    read_data_sets,
+)
+from distributed_tensorflow_tpu_torch.data.pipeline import (  # noqa: F401
+    batch_iterator,
+    prefetch_to_device,
+)
 from distributed_tensorflow_tpu_torch.data.synthetic import (  # noqa: F401
     synthetic_digits,
 )

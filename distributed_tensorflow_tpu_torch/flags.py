@@ -1,11 +1,14 @@
-"""Flags for the port's serving entry point, with the reference's
+"""Flags for the port's entry points, with the reference's
 ``tf.app.flags`` surface.
 
 The counterpart of ``distributed_tensorflow_tpu/flags.py``: the same
 lazily-parsed ``FLAGS`` singleton, ``DEFINE_*`` functions, parse-time
-validators and ``run(main)``, holding only the flags the predict path
-reads, plus the port-only ``--device``. Flag names and meanings match the
-JAX package's, so one command line serves either package.
+validators and ``run(main)``. ``define_flags`` holds the flags the predict
+path reads plus the port-only ``--device``; ``define_reference_flags`` adds
+the reference's 10 flags and the flags the local training loop reads.
+Names, defaults and meanings match the JAX package's, so one command line
+drives either package. Flags of paths not ported yet are not defined, and
+``run`` rejects them instead of ignoring them.
 """
 
 from __future__ import annotations
@@ -108,6 +111,12 @@ def run(main: Callable | None = None, argv=None):
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         sys.exit(2)
+    unknown = [a for a in extra if a.startswith("-")]
+    if unknown:
+        print(f"error: unknown flag(s) {unknown}: not defined here, or "
+              f"their path is not yet ported to "
+              f"distributed_tensorflow_tpu_torch", file=sys.stderr)
+        sys.exit(2)
     main = main or sys.modules["__main__"].main
     sys.exit(main([sys.argv[0]] + extra))
 
@@ -150,6 +159,149 @@ def define_flags():
     DEFINE_integer("serve_metrics_every", 50, "Emit serving scalars every "
                    "this many microbatches (0 = off)")
     FLAGS._register_validator(_validate_flags)
+
+
+def define_reference_flags():
+    """The reference's 10-flag surface (MNISTDist.py:13-31) and the flags
+    the local training loop reads, with the JAX package's names, defaults
+    and validators, plus the predict path's flags (``define_flags``).
+    Idempotent."""
+    if "job_name" in FLAGS._defs:
+        return
+    define_flags()
+    # --- reference flags, same names/defaults/meanings ---
+    DEFINE_string("data_dir", "/tmp/mnist-data", "Directory for string mnist data")
+    DEFINE_string("ps_hosts", "", "Comma-separated list of hostname:port pairs")
+    DEFINE_string("worker_hosts", "", "Comma-separated list of hostname:port pairs")
+    DEFINE_string("job_name", "", "One of 'ps', 'worker'")
+    DEFINE_integer("task_index", 0, "Index of task within the job")
+    DEFINE_integer("hidden_units", 100, "Number of units in the hidden layer of the NN")
+    DEFINE_integer("batch_size", 128, "Training batchsize")
+    DEFINE_integer("training_iter", 10000, "Training iteration")
+    DEFINE_float("learning_rate", 0.001, "Learning rate")
+    DEFINE_integer("display_step", 100, "display step")
+    # --- the JAX package's extensions that the local loop reads ---
+    DEFINE_string("mode", "auto", "Parallel mode: auto|local|sync|ps. auto "
+                  "= 'ps' roles when --ps_hosts is set, sync when "
+                  "--worker_hosts lists more than one worker, else local. "
+                  "Only local is ported")
+    DEFINE_string("optimizer", "sgd", "Optimizer: sgd|momentum|adam "
+                  "(reference: sgd)")
+    DEFINE_float("weight_decay", 0.0, "Decoupled weight decay: the update "
+                 "subtracts lr*wd*param alongside the gradient step (AdamW "
+                 "semantics for adam; classic L2 for plain sgd)")
+    DEFINE_float("keep_prob", 0.75, "Dropout keep probability during "
+                 "training. The reference defines DROPOUT=0.75 but feeds "
+                 "1.0 (disabled); this build applies it")
+    DEFINE_integer("save_model_secs", 600, "Checkpoint cadence in seconds "
+                   "(reference default)")
+    DEFINE_integer("max_to_keep", 5, "Checkpoints retained before GC (TF "
+                   "Saver's default); older ones are deleted")
+    DEFINE_integer("seed", 0, "PRNG seed")
+    DEFINE_boolean("test_eval", True, "Evaluate on the test split at the "
+                   "end (the reference never does; targets require it)")
+    DEFINE_boolean("eval_only", False, "Restore the latest checkpoint from "
+                   "--logdir and evaluate the full test split — no training")
+    DEFINE_integer("eval_step", 0, "If > 0, also evaluate on the FULL test "
+                   "split every this many steps. 0 = end-of-run only")
+    DEFINE_integer("validation_size", 0, "Examples held out of the train "
+                   "split as a validation DataSet (0 = none, reference "
+                   "behavior); with --eval_step the periodic evals run on it")
+    DEFINE_boolean("raw_input", False, "Feed uint8 images + int32 labels "
+                   "and normalize on the device (4x less host->device "
+                   "traffic)")
+    DEFINE_float("clip_norm", 0.0, "If > 0, clip gradients to this global "
+                 "L2 norm before the optimizer update")
+    DEFINE_string("lr_schedule", "constant", "Learning-rate schedule: "
+                  "constant|cosine|linear|exponential (reference: "
+                  "constant). Decays over --decay_steps from "
+                  "--learning_rate")
+    DEFINE_integer("warmup_steps", 0, "Linear learning-rate warmup steps "
+                   "before --lr_schedule takes over (0 = none)")
+    DEFINE_integer("decay_steps", 0, "Schedule decay horizon in steps (0 = "
+                   "the full --training_iter budget)")
+    DEFINE_float("decay_rate", 0.96, "Decay factor per --decay_steps for "
+                 "--lr_schedule=exponential")
+    DEFINE_integer("accum_steps", 1, "Gradient accumulation: split each "
+                   "batch into this many equal microbatches, one backward "
+                   "pass each, average, then one optimizer update")
+    DEFINE_string("profile_dir", "", "If set, trace --profile_steps "
+                  "post-warm-up training steps with torch.profiler into "
+                  "this dir (a Chrome trace) and report the device's busy "
+                  "share over them")
+    DEFINE_integer("profile_steps", 10, "Number of steps in the profiler "
+                   "window")
+    FLAGS._register_validator(_validate_training_flags)
+
+
+def _require(values: dict, name: str, check, what: str):
+    """One bounds check: skipped when the flag is not defined, raised with
+    the flag and the bound named otherwise."""
+    v = values.get(name)
+    if v is not None and not check(v):
+        raise ValueError(f"--{name}={v} {what}")
+
+
+def _validate_training_flags(values: dict):
+    """The JAX package's parse-time checks of the flags above."""
+    _require(values, "training_iter", lambda v: int(v) >= 1,
+             "must be >= 1 (the step budget)")
+    _require(values, "learning_rate", lambda v: float(v) > 0,
+             "must be > 0")
+    _require(values, "display_step", lambda v: int(v) >= 1,
+             "must be >= 1 (the display/eval cadence)")
+    _require(values, "task_index", lambda v: int(v) >= 0,
+             "must be >= 0 (a cluster-member index)")
+    _require(values, "hidden_units", lambda v: int(v) >= 1,
+             "must be >= 1")
+    _require(values, "keep_prob", lambda v: 0 < float(v) <= 1,
+             "must be in (0, 1] (a dropout KEEP probability)")
+    _require(values, "weight_decay", lambda v: float(v) >= 0,
+             "must be >= 0")
+    _require(values, "clip_norm", lambda v: float(v) >= 0,
+             "must be >= 0 (0 = no clipping)")
+    _require(values, "save_model_secs", lambda v: int(v) >= 0,
+             "must be >= 0 (0 = checkpoint every boundary)")
+    _require(values, "max_to_keep", lambda v: int(v) >= 1,
+             "must be >= 1 (GC must keep at least the newest)")
+    _require(values, "seed", lambda v: int(v) >= 0,
+             "must be >= 0 (PRNG keys are unsigned)")
+    _require(values, "eval_step", lambda v: int(v) >= 0,
+             "must be >= 0 (0 = end-of-run eval only)")
+    _require(values, "validation_size", lambda v: int(v) >= 0,
+             "must be >= 0 (0 = no held-out split)")
+    _require(values, "accum_steps", lambda v: int(v) >= 1,
+             "must be >= 1 (microbatches per update)")
+    _require(values, "profile_steps", lambda v: int(v) >= 1,
+             "must be >= 1 (the profiler window)")
+    _require(values, "warmup_steps", lambda v: int(v) >= 0,
+             "must be >= 0 (0 = no warmup)")
+    _require(values, "decay_steps", lambda v: int(v) >= 0,
+             "must be >= 0 (0 = the full step budget)")
+    _require(values, "decay_rate", lambda v: float(v) > 0,
+             "must be > 0 (a decay factor)")
+    mode = values.get("mode")
+    if mode not in ("auto", "local", "sync", "ps"):
+        raise ValueError(f"--mode={mode!r} must be one of auto, local, "
+                         f"sync, ps")
+    opt = values.get("optimizer")
+    if opt not in ("sgd", "momentum", "adam"):
+        raise ValueError(f"--optimizer={opt!r} must be one of sgd, "
+                         f"momentum, adam")
+    sched = values.get("lr_schedule")
+    if sched not in ("constant", "cosine", "linear", "exponential"):
+        raise ValueError(f"--lr_schedule={sched!r} must be one of "
+                         f"constant, cosine, linear, exponential")
+    dataset = values.get("dataset")
+    if dataset not in ("mnist", "fashion_mnist", "cifar10", "lm"):
+        raise ValueError(f"--dataset={dataset!r} must be one of mnist, "
+                         f"fashion_mnist, cifar10, lm")
+    job = values.get("job_name")
+    if job not in ("", "ps", "worker"):
+        raise ValueError(
+            f"--job_name={job!r} must be 'ps', 'worker' or empty "
+            f"(reference semantics, MNISTDist.py:13-31: the role this "
+            f"process plays in the --ps_hosts topology)")
 
 
 def _validate_flags(values: dict):

@@ -1,7 +1,8 @@
 """Neural-net ops of the deep CNN, in PyTorch.
 
 The counterpart of ``distributed_tensorflow_tpu/ops/nn.py`` (``conv2d``,
-``maxpool2d``, ``dense``, ``normalize_if_u8``, ``dropout``). Public
+``maxpool2d``, ``dense``, ``normalize_if_u8``, ``dropout``,
+``softmax_cross_entropy``, ``accuracy``). Public
 functions keep the reference's layouts: NHWC activations and HWIO conv
 kernels. ``conv2d`` hands cuDNN an NCHW view of the NHWC tensor (the
 channels-last memory format, so no copy) and an OIHW view of the kernel.
@@ -94,3 +95,32 @@ def dropout(x, keep_prob, generator=None, *, deterministic: bool = False):
                       device=x.device) < keep_prob
     scale = 1.0 / keep_prob if keep_prob > 0 else 0.0
     return torch.where(mask, x * scale, torch.zeros_like(x))
+
+
+def softmax_cross_entropy(logits, labels):
+    """Mean softmax cross-entropy over the batch (the reference cost,
+    ``MNISTDist.py:148``), taken in float32.
+
+    ``labels`` are one-hot [B, C] or integer class ids [B]. An id outside
+    [0, C) matches no class and contributes zero loss and gradient (the
+    JAX package's one-hot semantics); the loaders reject such ids at
+    load time."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    if labels.dim() == logits.dim() - 1:  # integer class ids
+        classes = torch.arange(logp.shape[-1], device=logp.device)
+        # where(), not a one-hot multiply: a class with logit -inf has
+        # logp -inf, and 0 * -inf would turn the sum into NaN
+        hit = classes == labels.unsqueeze(-1).long()
+        per_example = -torch.where(hit, logp, torch.zeros_like(logp)).sum(-1)
+    else:
+        per_example = -(labels.float() * logp).sum(-1)
+    return per_example.mean()
+
+
+def accuracy(logits, labels):
+    """Minibatch argmax-equality accuracy (``MNISTDist.py:152-153``).
+    ``labels``: one-hot [B, C] or integer class ids [B]."""
+    pred = logits.argmax(-1)
+    true = labels.long() if labels.dim() == logits.dim() - 1 \
+        else labels.argmax(-1)
+    return (pred == true).float().mean()

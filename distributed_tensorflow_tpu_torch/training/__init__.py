@@ -1,1 +1,17 @@
-"""Training: only ``build_model_for`` is ported so far."""
+"""Training: the train state and step, schedules, the Supervisor and the
+local training loop."""
+
+from distributed_tensorflow_tpu_torch.training.schedules import (  # noqa: F401
+    get_schedule,
+    schedule_from_flags,
+)
+from distributed_tensorflow_tpu_torch.training.train_state import (  # noqa: F401
+    TrainState,
+    adam,
+    create_train_state,
+    get_optimizer,
+    make_eval_step,
+    make_train_step,
+    momentum,
+    sgd,
+)

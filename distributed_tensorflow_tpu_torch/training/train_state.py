@@ -1,0 +1,346 @@
+"""Train state and the train step, as plain functions over a module's
+parameters.
+
+The counterpart of ``distributed_tensorflow_tpu/training/train_state.py``.
+The reference's step (``MNISTDist.py:148-149,188``) is forward, backward
+and an optimizer update with a shared ``global_step``; here it is one
+Python function over a ``TrainState`` whose ``params`` are the model's own
+``nn.Parameter`` tensors, nested as the JAX parameter tree
+(``{"weights": {...}, "biases": {...}}``). The forward is the module's own,
+gradients come from ``torch.autograd.grad`` over those tensors, and
+``apply_updates`` adds the updates to the parameters in place, so the
+module always holds the current parameters.
+
+``TrainState`` flattens to the JAX package's checkpoint keys
+(``params/...``, ``opt_state/...``, ``step``, ``rng``), so a checkpoint of
+either package restores in the other.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from distributed_tensorflow_tpu_torch.ops import nn
+from distributed_tensorflow_tpu_torch.utils.pytree import (
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
+
+_U64 = 0xFFFFFFFFFFFFFFFF
+
+
+class TrainState(NamedTuple):
+    """params + optimizer slots + shared global step + dropout key +
+    non-gradient model state (``()`` for the deep CNN)."""
+
+    params: Any  # the model's nn.Parameters, nested as the JAX tree
+    opt_state: Any
+    step: torch.Tensor  # int32 scalar on the CPU: the reference's global_step
+    rng: np.ndarray  # uint32[2], the JAX package's raw PRNG key layout
+    model_state: Any = ()
+
+
+class Optimizer(NamedTuple):
+    # update: (grads, opt_state, params, step=None) -> (updates, opt_state).
+    # ``step`` is the global step before this update; a scheduled rate is
+    # evaluated on it, so the opt_state layout never depends on the
+    # schedule.
+    init: Callable[[Any], Any]
+    update: Callable[..., tuple[Any, Any]]
+
+
+def params_of(model: torch.nn.Module) -> dict:
+    """The module's parameters as the JAX parameter tree: ``weights.wd1``
+    becomes ``{"weights": {"wd1": ...}}``. The leaves are the module's own
+    tensors."""
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        *parents, leaf = name.split(".")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = p
+    return tree
+
+
+def _lr_at(learning_rate, step):
+    """A float rate, or a schedule evaluated on ``step`` (the global step
+    before the update). A schedule without a step is a caller bug."""
+    if not callable(learning_rate):
+        return learning_rate
+    if step is None:
+        raise ValueError(
+            "scheduled learning rate needs the global step: call "
+            "optimizer.update(grads, opt_state, params, step)")
+    return learning_rate(step)
+
+
+def _check_wd(weight_decay) -> float:
+    """Weight decay must be non-negative. The zero path keeps the plain
+    update, since ``0.0 * p`` is not free and turns an inf leaf into NaN."""
+    wd = float(weight_decay)
+    if wd < 0:
+        raise ValueError(f"weight_decay must be >= 0, got {wd}")
+    return wd
+
+
+def sgd(learning_rate, weight_decay: float = 0.0) -> Optimizer:
+    """Vanilla SGD, parity with ``GradientDescentOptimizer``
+    (MNISTDist.py:149). The opt_state is ``()``; ``weight_decay`` adds
+    ``-lr*wd*param`` to the update."""
+    wd = _check_wd(weight_decay)
+
+    def init(params):
+        return ()
+
+    def update(grads, opt_state, params, step=None):
+        lr = _lr_at(learning_rate, step)
+        if wd:
+            updates = tree_map(lambda g, p: -lr * (g + wd * p), grads, params)
+        else:
+            updates = tree_map(lambda g: -lr * g, grads)
+        return updates, opt_state
+
+    return Optimizer(init, update)
+
+
+def momentum(learning_rate, beta: float = 0.9,
+             weight_decay: float = 0.0) -> Optimizer:
+    """SGD with momentum; the opt_state is the bare velocity tree. Weight
+    decay is decoupled: applied to the update, not fed through the
+    velocity."""
+    wd = _check_wd(weight_decay)
+
+    def init(params):
+        return tree_map(torch.zeros_like, params)
+
+    def update(grads, vel, params, step=None):
+        lr = _lr_at(learning_rate, step)
+        vel = tree_map(lambda v, g: beta * v + g, vel, grads)
+        if wd:
+            updates = tree_map(lambda v, p: -lr * (v + wd * p), vel, params)
+        else:
+            updates = tree_map(lambda v: -lr * v, vel)
+        return updates, vel
+
+    return Optimizer(init, update)
+
+
+def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0) -> Optimizer:
+    """Adam in the JAX package's form: an int32 step count ``t`` and
+    ``scale = lr * sqrt(1 - b2**t) / (1 - b1**t)`` taken in float32 on
+    the device. Nonzero ``weight_decay`` makes it AdamW."""
+    wd = _check_wd(weight_decay)
+
+    def init(params):
+        device = tree_leaves(params)[0].device
+        return {"m": tree_map(torch.zeros_like, params),
+                "v": tree_map(torch.zeros_like, params),
+                "t": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def update(grads, st, params, step=None):
+        lr = _lr_at(learning_rate, step)
+        t = st["t"] + 1
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, st["m"], grads)
+        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, st["v"], grads)
+        tf_ = t.float()
+        scale = lr * torch.sqrt(1 - b2 ** tf_) / (1 - b1 ** tf_)
+        if wd:
+            updates = tree_map(
+                lambda m_, v_, p: -(scale * m_ / (torch.sqrt(v_) + eps)
+                                    + lr * wd * p), m, v, params)
+        else:
+            updates = tree_map(
+                lambda m_, v_: -scale * m_ / (torch.sqrt(v_) + eps), m, v)
+        return updates, {"m": m, "v": v, "t": t}
+
+    return Optimizer(init, update)
+
+
+_OPTIMIZERS = {"sgd": sgd, "momentum": momentum, "adam": adam}
+
+
+def get_optimizer(name: str, learning_rate,
+                  weight_decay: float = 0.0) -> Optimizer:
+    try:
+        factory = _OPTIMIZERS[name]
+    except KeyError:
+        raise ValueError(f"unknown optimizer {name!r}; available: "
+                         f"{sorted(_OPTIMIZERS)}") from None
+    return factory(learning_rate, weight_decay=weight_decay)
+
+
+@torch.no_grad()
+def apply_updates(params, updates):
+    """``params + updates``, added in place (the leaves are the module's
+    parameters); returns ``params``."""
+    return tree_map(lambda p, u: p.add_(u.to(p.dtype)), params, updates)
+
+
+def clip_by_global_norm(max_norm: float):
+    """Gradient transform: scale the whole gradient tree so its global L2
+    norm is at most ``max_norm`` (``tf.clip_by_global_norm``)."""
+    max_norm = float(max_norm)
+
+    def transform(grads):
+        sq = sum(torch.sum(torch.square(g.float()))
+                 for g in tree_leaves(grads))
+        norm = torch.sqrt(sq)
+        scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+        return tree_map(lambda g: (g * scale).to(g.dtype), grads)
+
+    return transform
+
+
+def _mix(*words: int) -> int:
+    """A 64-bit seed from integers: each folded in through splitmix64."""
+    z = 0
+    for w in words:
+        z = (z ^ (w & _U64)) + 0x9E3779B97F4A7C15 & _U64
+        z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9 & _U64
+        z = (z ^ (z >> 27)) * 0x94D049BB133111EB & _U64
+        z ^= z >> 31
+    return z
+
+
+def dropout_seed(rng: np.ndarray, step) -> int:
+    """The dropout seed of one train step: the state's uint32[2] key
+    mixed with the global step. The masks are a function of (key, step),
+    so a resumed run draws what an uninterrupted one would; they are not
+    the JAX package's threefry masks."""
+    return _mix(int(rng[0]), int(rng[1]), int(step))
+
+
+def create_train_state(model, optimizer: Optimizer, seed: int = 0,
+                       device: torch.device | str = "cpu") -> TrainState:
+    """Initialize ``model`` from ``seed`` (on the CPU generator), move it
+    to ``device`` and build the state around its parameters. The key is
+    the raw uint32[2] layout of ``jax.random.PRNGKey(seed)``."""
+    model.init(torch.Generator().manual_seed(seed)).to(device)
+    params = params_of(model)
+    return TrainState(
+        params=params,
+        opt_state=optimizer.init(params),
+        step=torch.zeros((), dtype=torch.int32),
+        rng=np.array([seed >> 32 & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32),
+        model_state=(),
+    )
+
+
+def loss_and_metrics(model, batch, *, keep_prob=1.0, rng=None,
+                     train=False, model_state=()):
+    """(loss, {"metrics": {"loss", "accuracy"}, "model_state": ...}) for
+    one batch through ``model``'s current parameters. ``rng`` is a
+    dropout seed (``dropout_seed``) or None for no dropout."""
+    x, y = batch
+    generator = None
+    if rng is not None:
+        generator = torch.Generator(device=x.device).manual_seed(rng)
+    logits = model(x, keep_prob=keep_prob, generator=generator, train=train)
+    loss = nn.softmax_cross_entropy(logits, y)
+    acc = nn.accuracy(logits, y)
+    return loss, {"metrics": {"loss": loss.detach(), "accuracy": acc},
+                  "model_state": model_state}
+
+
+def compute_grads(model, params, batch, *, keep_prob, rng, model_state,
+                  accum_steps: int = 1):
+    """(grads, metrics, new_model_state) for one optimizer update: the
+    gradients with respect to ``params``, the module's own parameters.
+
+    ``accum_steps > 1`` splits the batch into that many equal
+    microbatches, one backward pass each, and averages gradients and
+    metrics; each microbatch draws its own dropout seed."""
+    leaves = tree_leaves(params)
+
+    def one(b, seed):
+        loss, aux = loss_and_metrics(model, b, keep_prob=keep_prob,
+                                     rng=seed, train=True,
+                                     model_state=model_state)
+        grads = torch.autograd.grad(loss, leaves)
+        return grads, aux["metrics"]
+
+    if accum_steps <= 1:
+        grads, metrics = one(batch, rng)
+        return tree_unflatten(params, grads), metrics, model_state
+
+    x, y = batch
+    n = x.shape[0]
+    if n % accum_steps:
+        raise ValueError(f"batch of {n} examples does not split into "
+                         f"{accum_steps} equal microbatches")
+    g_sum, m_sum = None, None
+    for i, (xb, yb) in enumerate(zip(x.chunk(accum_steps),
+                                     y.chunk(accum_steps))):
+        seed = None if rng is None else _mix(rng, i)
+        g, m = one((xb, yb), seed)
+        g_sum = g if g_sum is None else [a + b for a, b in zip(g_sum, g)]
+        m_sum = m if m_sum is None else {k: m_sum[k] + m[k] for k in m}
+    inv = 1.0 / accum_steps
+    grads = [g * inv for g in g_sum]
+    metrics = {k: v * inv for k, v in m_sum.items()}
+    return tree_unflatten(params, grads), metrics, model_state
+
+
+def make_train_step(model, optimizer: Optimizer, keep_prob: float = 1.0,
+                    grad_transform: Callable[[Any], Any] | None = None,
+                    accum_steps: int = 1):
+    """The train step: (state, batch) -> (state, metrics).
+
+    ``grad_transform`` rewrites the gradients before the update (e.g.
+    ``clip_by_global_norm``). The metrics stay on the device until the
+    caller reads them."""
+
+    def step_fn(state: TrainState, batch):
+        seed = dropout_seed(state.rng, state.step) if keep_prob < 1 else None
+        grads, metrics, model_state = compute_grads(
+            model, state.params, batch, keep_prob=keep_prob, rng=seed,
+            model_state=state.model_state, accum_steps=accum_steps)
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        updates, opt_state = optimizer.update(grads, state.opt_state,
+                                              state.params, state.step)
+        params = apply_updates(state.params, updates)
+        return (TrainState(params, opt_state, state.step + 1, state.rng,
+                           model_state), metrics)
+
+    return step_fn
+
+
+def make_eval_step(model):
+    """(batch, model_state) -> metrics through ``model``'s current
+    parameters, dropout off: the reference's display eval
+    (``MNISTDist.py:181-182``), usable on the test split too."""
+
+    @torch.no_grad()
+    def eval_fn(batch, model_state=()):
+        _, aux = loss_and_metrics(model, batch, train=False,
+                                  model_state=model_state)
+        return aux["metrics"]
+
+    return eval_fn
+
+
+def evaluate(model, dataset, batch_size: int = 1000,
+             model_state=()) -> dict[str, float]:
+    """Full-split evaluation of ``model``'s current parameters, weighted
+    over a remainder batch, on the device that holds them."""
+    eval_fn = make_eval_step(model)
+    device = next(model.parameters()).device
+    n = dataset.num_examples
+    images, labels = dataset.images, dataset.labels
+    total = {"loss": 0.0, "accuracy": 0.0}
+    seen = 0
+    for i in range(0, n, batch_size):
+        xs = torch.tensor(images[i:i + batch_size], device=device)
+        ys = torch.tensor(labels[i:i + batch_size], device=device)
+        m = eval_fn((xs, ys), model_state)
+        w = len(xs)
+        total = {k: total[k] + float(m[k]) * w for k in total}
+        seen += w
+    return {k: v / max(seen, 1) for k, v in total.items()}

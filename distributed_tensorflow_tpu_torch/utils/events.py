@@ -1,8 +1,17 @@
-"""CRC-32C (Castagnoli) for the checkpoint manifests.
+"""CRC-32C (Castagnoli) and the TensorBoard scalar event-file writer.
 
-The counterpart of ``distributed_tensorflow_tpu/utils/events.py``'s
-``crc32c``, numpy only: the optional ``google_crc32c`` C extension is not
-assumed. The TensorBoard event writer comes with the training slice.
+The counterpart of ``distributed_tensorflow_tpu/utils/events.py``, numpy
+only: the optional ``google_crc32c`` C extension is not assumed.
+
+``EventFileWriter`` writes standard ``events.out.tfevents.*`` logs that
+TensorBoard reads directly, the sink of the reference's summary op
+(``MNISTDist.py:155,162``):
+
+  TFRecord framing: u64 length | u32 masked_crc32c(length) | payload
+                    | u32 masked_crc32c(payload)
+  payload: a tensorflow.Event proto, encoded by hand (wall_time=1 double,
+  step=2 int64, file_version=3 string,
+  summary=5 { repeated Value { tag=1 string, simple_value=2 float } })
 
 ``_crc32c`` is the scalar table recurrence (the reference implementation).
 ``crc32c`` computes the identical checksum at bulk speed by CRC's GF(2)
@@ -14,6 +23,11 @@ the cached linear "advance the state over L zero bytes" operator, stored as
 """
 
 from __future__ import annotations
+
+import os
+import socket
+import struct
+import time
 
 import numpy as np
 
@@ -80,3 +94,78 @@ def crc32c(data) -> int:
     else:
         u8 = np.frombuffer(data, dtype=np.uint8)
     return _crc32c_numpy(u8)
+
+
+def _masked_crc(data: bytes) -> int:
+    crc = _crc32c(data)
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        bits = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(bits | 0x80)
+        else:
+            out.append(bits)
+            return bytes(out)
+
+
+def _len_delimited(field: int, payload: bytes) -> bytes:
+    return _varint((field << 3) | 2) + _varint(len(payload)) + payload
+
+
+def _scalar_value(tag: str, value: float) -> bytes:
+    body = _len_delimited(1, tag.encode())  # Value.tag = 1
+    body += _varint((2 << 3) | 5) + struct.pack("<f", float(value))  # simple_value = 2
+    return body
+
+
+def _event(wall_time: float, step: int, *, file_version: str | None = None,
+           scalars: dict | None = None) -> bytes:
+    body = _varint((1 << 3) | 1) + struct.pack("<d", wall_time)  # wall_time = 1
+    body += _varint(2 << 3) + _varint(int(step))  # step = 2 (varint)
+    if file_version is not None:
+        body += _len_delimited(3, file_version.encode())  # file_version = 3
+    if scalars:
+        summary = b"".join(
+            _len_delimited(1, _scalar_value(tag, v))  # Summary.value = 1
+            for tag, v in sorted(scalars.items()))
+        body += _len_delimited(5, summary)  # Event.summary = 5
+    return body
+
+
+class EventFileWriter:
+    """Append-only TensorBoard scalar log for one run directory."""
+
+    def __init__(self, logdir: str):
+        os.makedirs(logdir, exist_ok=True)
+        name = f"events.out.tfevents.{int(time.time())}.{socket.gethostname()}"
+        self.path = os.path.join(logdir, name)
+        self._file = open(self.path, "ab")
+        self._write(_event(time.time(), 0, file_version="brain.Event:2"))
+
+    def _write(self, payload: bytes) -> None:
+        header = struct.pack("<Q", len(payload))
+        self._file.write(header)
+        self._file.write(struct.pack("<I", _masked_crc(header)))
+        self._file.write(payload)
+        self._file.write(struct.pack("<I", _masked_crc(payload)))
+
+    def add_scalars(self, step: int, scalars: dict) -> None:
+        clean = {k: float(v) for k, v in scalars.items()
+                 if isinstance(v, (int, float))}
+        if clean:
+            self._write(_event(time.time(), step, scalars=clean))
+            self._file.flush()
+
+    def flush(self) -> None:
+        if self._file is not None:
+            self._file.flush()
+
+    def close(self) -> None:
+        if self._file is not None:
+            self._file.close()
+            self._file = None

@@ -1,9 +1,11 @@
-"""Serving metrics sinks: a JSONL scalar logger and a streaming histogram.
+"""Metrics: the reference's stdout line, scalar sinks and a streaming
+histogram.
 
-The counterpart of ``distributed_tensorflow_tpu/utils/metrics.py``:
-``MetricsLogger`` keeps only its JSONL sink (the TensorBoard event file and
-the reference stdout line come with the training slice);
-``StreamingHistogram`` is the same geometric-bucket quantile estimator.
+The counterpart of ``distributed_tensorflow_tpu/utils/metrics.py``: the
+reference's cadenced print (``MNISTDist.py:183-186``) reproduced in its
+format, every scalar landing in a JSONL file and a TensorBoard event file
+(``utils/events.py``), and ``StreamingHistogram``, the same
+geometric-bucket quantile estimator.
 """
 
 from __future__ import annotations
@@ -14,41 +16,69 @@ import os
 import threading
 import time
 
+from distributed_tensorflow_tpu_torch.utils.events import EventFileWriter
+
+
+def reference_log_line(job_name: str, task_index: int, step: int, loss,
+                       acc) -> str:
+    """The exact print of MNISTDist.py:183-186 (print-function comma
+    semantics: a single-space join of the arguments)."""
+    return " ".join([f"job: {job_name}/{task_index}", "step: ", str(step),
+                     "mini_batch loss: ", str(loss),
+                     "training accuracy: ", str(acc)])
+
 
 class MetricsLogger:
-    """Scalar logger into ``<logdir>/<filename>`` as JSON lines.
+    """Scalar logger: stdout (reference format), JSONL
+    (``<logdir>/<filename>``) and a TensorBoard event file.
 
     Thread-safe: the serving cadence (batcher worker threads) and other
     callers may share one logger; ``scalars`` writes each record under a
     lock so lines never interleave."""
 
     def __init__(self, logdir: str | None = None, job_name: str = "worker",
-                 filename: str = "metrics.jsonl"):
-        self.job = f"{job_name or 'worker'}/0"  # the JAX records' job/task
+                 task_index: int = 0, filename: str = "metrics.jsonl"):
+        self.job_name = job_name or "worker"
+        self.task_index = task_index
         self._file = None
+        self._events = None
         self._lock = threading.Lock()
         if logdir:
             os.makedirs(logdir, exist_ok=True)
             self._file = open(os.path.join(logdir, filename), "a",
                               buffering=1)
+            self._events = EventFileWriter(logdir)
+
+    def log_display(self, step: int, loss, acc):
+        print(reference_log_line(self.job_name, self.task_index, step, loss,
+                                 acc))
+        self.scalars(step, {"mini_batch_loss": float(loss),
+                            "training_accuracy": float(acc)})
 
     def scalars(self, step: int, values: dict):
         with self._lock:
             if self._file is not None:
                 rec = {"step": int(step), "time": time.time(),
-                       "job": self.job, **values}
+                       "job": f"{self.job_name}/{self.task_index}", **values}
                 self._file.write(json.dumps(rec) + "\n")
+            if self._events is not None:
+                self._events.add_scalars(step, values)
 
     def flush(self):
         with self._lock:
             if self._file is not None:
                 self._file.flush()
+            if self._events is not None:
+                self._events.flush()
 
     def close(self):
         with self._lock:
             if self._file is not None:
                 self._file.close()
                 self._file = None
+            if self._events is not None:
+                self._events.close()
+                self._events = None
 
 
 class StreamingHistogram:

@@ -1,0 +1,55 @@
+"""Throughput metering and the device's busy share in a profiled window.
+
+The counterpart of ``distributed_tensorflow_tpu/utils/profiling.py``
+(``Throughput``). ``busy_share`` reads a ``torch.profiler`` trace, the
+port's stand-in for the JAX package's ``--profile_dir`` device trace.
+"""
+
+from __future__ import annotations
+
+import time
+
+
+class Throughput:
+    """images/sec meter over a training window."""
+
+    def __init__(self, batch_size: int):
+        self.batch_size = batch_size
+        self.reset()
+
+    def reset(self):
+        self._start = time.perf_counter()
+        self._images = 0
+
+    def step(self, n: int | None = None):
+        self._images += n if n is not None else self.batch_size
+
+    @property
+    def images_per_sec(self) -> float:
+        dt = time.perf_counter() - self._start
+        return self._images / dt if dt > 0 else 0.0
+
+
+def busy_share(events) -> float | None:
+    """The share of a profiled window in which the device ran at least
+    one kernel or copy: the union of the device events' intervals over
+    the window from the first host event's start to the last event's end.
+    ``events`` are ``torch.profiler.profile().events()``. None when the
+    trace holds no device time (the profiler saw no device)."""
+    from torch.autograd import DeviceType
+
+    device, spans = [], []
+    for e in events:
+        iv = (e.time_range.start, e.time_range.end)
+        spans.append(iv)
+        if e.device_type == DeviceType.CUDA and iv[1] > iv[0]:
+            device.append(iv)
+    if not device:
+        return None
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(device):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    window = max(s for _, s in spans) - min(s for s, _ in spans)
+    return busy / window if window > 0 else None

@@ -2,9 +2,11 @@
 
 The counterpart of ``distributed_tensorflow_tpu/utils/pytree.py``
 (``path_key``, ``flatten_pytree``, ``unflatten_pytree``), over nested
-dicts, lists and tuples whose leaves are torch tensors, numpy arrays or
-scalars. Keys are '/'-joined paths ("params/weights/wd1"), the same keys
-the JAX package writes, so checkpoints cross between the packages.
+dicts, lists, tuples and NamedTuples (such as ``TrainState``) whose
+leaves are torch tensors, numpy arrays or scalars. A NamedTuple's fields
+are keyed by name, as JAX keys them. Keys are '/'-joined paths
+("params/weights/wd1"), the same keys the JAX package writes, so
+checkpoints cross between the packages.
 bfloat16 leaves are stored as uint16 bit patterns under a tagged key,
 because npz cannot hold bfloat16.
 
@@ -27,15 +29,47 @@ def path_key(path) -> str:
     return "/".join(str(p) for p in path)
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def _leaves_with_path(tree, prefix=()):
     if isinstance(tree, Mapping):
         for k in sorted(tree):
             yield from _leaves_with_path(tree[k], prefix + (k,))
+    elif _is_namedtuple(tree):
+        for k in tree._fields:
+            yield from _leaves_with_path(getattr(tree, k), prefix + (k,))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _leaves_with_path(v, prefix + (i,))
     else:
         yield prefix, tree
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in path-key order (dict keys sorted)."""
+    return [leaf for _, leaf in _leaves_with_path(tree)]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of each
+    tree in ``rest``, in ``tree_leaves`` order, rebuilt in ``tree``'s
+    structure (dict keys sorted)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, *vs) for vs in zip(tree, *rest)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_unflatten(template, leaves):
+    """``leaves`` (in ``tree_leaves`` order) in ``template``'s structure."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
 
 
 def _bf16_bits(t: torch.Tensor) -> np.ndarray:
@@ -67,14 +101,6 @@ def flatten_pytree(tree) -> dict[str, np.ndarray]:
         else:
             flat[key] = _to_numpy(leaf)
     return flat
-
-
-def _rebuild(template, leaves):
-    if isinstance(template, Mapping):
-        return {k: _rebuild(template[k], leaves) for k in sorted(template)}
-    if isinstance(template, (list, tuple)):
-        return type(template)(_rebuild(v, leaves) for v in template)
-    return next(leaves)
 
 
 def unflatten_pytree(template, flat: dict[str, np.ndarray]):
@@ -109,7 +135,7 @@ def unflatten_pytree(template, flat: dict[str, np.ndarray]):
             if bits:
                 arr = _bf16_bits_to_f32(arr)
             out.append(arr if arr.dtype == want else arr.astype(want))
-    return _rebuild(template, iter(out))
+    return tree_unflatten(template, out)
 
 
 def params_from_jax(tree) -> dict[str, torch.Tensor]:

@@ -1,0 +1,42 @@
+"""The per-step time breakdown of the training loop.
+
+The counterpart of ``distributed_tensorflow_tpu/utils/telemetry.py``'s
+``StepTimer``; the span tracer, flight recorder and watchdog of that
+module are not ported yet.
+"""
+
+from __future__ import annotations
+
+
+class StepTimer:
+    """Per-window step-time breakdown accumulator.
+
+    The loop wraps its kinds of per-step work and calls ``add``:
+    ``host_wait`` (drawing the prefetched batch), ``dispatch`` (the step
+    call returning: on a card this is the host's work of enqueueing the
+    step, since the kernels run asynchronously), ``device`` (time blocked
+    waiting for the device). ``scalars()`` returns the per-step means
+    since the last call and resets the window.
+    """
+
+    KEYS = ("host_wait", "dispatch", "device")
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self._acc = dict.fromkeys(self.KEYS, 0.0)
+        self._steps = 0
+
+    def add(self, key: str, dt: float) -> None:
+        self._acc[key] += dt
+
+    def steps(self) -> None:
+        self._steps += 1
+
+    def scalars(self) -> dict:
+        n = max(self._steps, 1)
+        out = {f"step_{k}_s": round(self._acc[k] / n, 9)
+               for k in self.KEYS}
+        self.reset()
+        return out

@@ -102,3 +102,138 @@ def test_sharded_checkpoint_raises_not_yet_ported(tmp_path):
     with pytest.raises(tckpt.ShardedCheckpointNotPorted,
                        match="not yet ported"):
         tckpt.restore_params_with_fallback(str(tmp_path), _port_params())
+
+
+def _trained_port_state(seed=3):
+    """A port adam TrainState after one update, so every slot is nonzero."""
+    from distributed_tensorflow_tpu_torch.training import train_state as tts
+
+    model = DeepCNN()
+    opt = tts.adam(1e-3)
+    state = tts.create_train_state(model, opt, seed=seed)
+    x = torch.from_numpy(
+        np.random.default_rng(seed).random((4, 784), dtype=np.float32))
+    y = torch.tensor([1, 2, 3, 4])
+    state, _ = tts.make_train_step(model, opt)(state, (x, y))
+    return state
+
+
+def test_port_train_state_restores_bitwise_in_jax(tmp_path):
+    from distributed_tensorflow_tpu.training import adam as jadam
+    from distributed_tensorflow_tpu_torch.utils.pytree import flatten_pytree
+
+    state = _trained_port_state()
+    tckpt.save_checkpoint(str(tmp_path), state, 1)
+    template = create_train_state(JaxDeepCNN(), jadam(1e-3), seed=0)
+    got, step, _ = jckpt.restore_with_fallback(str(tmp_path), template)
+    assert step == 1
+    want = flatten_pytree(state)
+    from distributed_tensorflow_tpu.utils.pytree import flatten_pytree as jflat
+
+    have = jflat(got)
+    assert sorted(have) == sorted(want)
+    for k in want:
+        assert have[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(have[k], want[k])
+
+
+def test_jax_train_state_restores_bitwise_in_port(tmp_path):
+    from distributed_tensorflow_tpu.training import adam as jadam
+    from distributed_tensorflow_tpu.training import make_train_step
+    from distributed_tensorflow_tpu.utils.pytree import flatten_pytree as jflat
+    from distributed_tensorflow_tpu_torch.training import train_state as tts
+    from distributed_tensorflow_tpu_torch.training.supervisor import Supervisor
+    from distributed_tensorflow_tpu_torch.utils.pytree import flatten_pytree
+
+    jm = JaxDeepCNN()
+    jstate = create_train_state(jm, jadam(1e-3), seed=4)
+    x = np.random.default_rng(4).random((4, 784), dtype=np.float32)
+    jstate, _ = make_train_step(jm, jadam(1e-3), donate=False)(
+        jstate, (x, np.array([1, 2, 3, 4], np.int32)))
+    jckpt.save_checkpoint(str(tmp_path), jstate, 1)
+    model = DeepCNN()
+    live = tts.create_train_state(model, tts.adam(1e-3), seed=0)
+    wd1 = live.params["weights"]["wd1"]
+    state, step = Supervisor(True, str(tmp_path)).init_or_restore(live)
+    assert step == 1
+    # restored in place: the module holds the restored parameters
+    assert state.params["weights"]["wd1"] is wd1
+    want, have = jflat(jstate), flatten_pytree(state)
+    assert sorted(have) == sorted(want)
+    for k in want:
+        assert have[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(have[k], want[k])
+
+
+def test_supervisor_adopts_a_params_only_checkpoint(tmp_path):
+    from distributed_tensorflow_tpu_torch.training import train_state as tts
+    from distributed_tensorflow_tpu_torch.training.supervisor import Supervisor
+
+    params = _port_params(seed=6)
+    tckpt.save_checkpoint(str(tmp_path), {"params": params,
+                                          "step": np.int32(40)}, 40)
+    live = tts.create_train_state(DeepCNN(), tts.adam(1e-3), seed=0)
+    state, step = Supervisor(True, str(tmp_path)).init_or_restore(live)
+    assert step == 40 and int(state.step) == 40
+    np.testing.assert_array_equal(
+        state.params["weights"]["wd1"].detach().numpy(),
+        params["weights"]["wd1"])
+    assert int(state.opt_state["t"]) == 0  # the optimizer starts fresh
+
+
+def test_switched_optimizer_is_a_loud_restore(tmp_path):
+    from distributed_tensorflow_tpu_torch.training import train_state as tts
+    from distributed_tensorflow_tpu_torch.training.supervisor import Supervisor
+
+    tckpt.save_checkpoint(str(tmp_path), _trained_port_state(), 1)
+    live = tts.create_train_state(DeepCNN(), tts.momentum(1e-3), seed=0)
+    with pytest.raises(KeyError, match="same optimizer"):
+        Supervisor(True, str(tmp_path)).init_or_restore(live)
+
+
+def test_checkpointer_cadence_and_chief_only(tmp_path, monkeypatch):
+    state = {"params": {"w": np.ones(2, np.float32)}}
+    clock = [1000.0]
+    monkeypatch.setattr(tckpt.time, "time", lambda: clock[0])
+    ck = tckpt.Checkpointer(str(tmp_path), save_model_secs=60, max_to_keep=2)
+    assert ck.maybe_save(state, 1) is None  # not due yet
+    clock[0] += 60
+    assert ck.maybe_save(state, 2).endswith("ckpt-2.npz")
+    assert ck.maybe_save(state, 3) is None  # the cadence restarted
+    assert ck.save(state, 4).endswith("ckpt-4.npz")
+    clock[0] += 120
+    ck.maybe_save(state, 5)
+    assert sorted(n for n in os.listdir(tmp_path) if n.endswith(".npz")) == [
+        "ckpt-4.npz", "ckpt-5.npz"]  # max_to_keep
+    other = tckpt.Checkpointer(str(tmp_path / "w1"), is_chief=False,
+                               save_model_secs=1)
+    clock[0] += 10
+    assert other.maybe_save(state, 6) is None and other.save(state, 6) is None
+    assert not os.path.exists(tmp_path / "w1")
+    off = tckpt.Checkpointer(str(tmp_path / "off"), save_model_secs=0)
+    clock[0] += 1e6
+    assert off.maybe_save(state, 7) is None  # 0 turns the cadence off
+
+
+def test_managed_saves_on_exit_and_on_sigterm(tmp_path):
+    import signal
+
+    from distributed_tensorflow_tpu_torch.training import train_state as tts
+    from distributed_tensorflow_tpu_torch.training.supervisor import Supervisor
+
+    live = tts.create_train_state(DeepCNN(), tts.sgd(1e-3), seed=0)
+    sv = Supervisor(True, str(tmp_path), save_model_secs=0)
+    before = signal.getsignal(signal.SIGTERM)
+    with sv.managed(live) as box:
+        assert box.step == 0
+        os.kill(os.getpid(), signal.SIGTERM)  # the handler requests a stop
+        assert sv.should_stop()
+        box.update(box.state, 9)
+    assert tckpt.latest_checkpoint(str(tmp_path))[1] == 9
+    assert signal.getsignal(signal.SIGTERM) is before  # handler removed
+    sv2 = Supervisor(True, str(tmp_path / "err"), save_model_secs=0)
+    with pytest.raises(RuntimeError, match="boom"):
+        with sv2.managed(live) as box:
+            box.update(box.state, 3)
+            raise RuntimeError("boom")
+    assert tckpt.latest_checkpoint(str(tmp_path / "err"))[1] == 3

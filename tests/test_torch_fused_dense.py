@@ -223,3 +223,46 @@ def test_kernel_matches_plain_version_on_card(cuda_device, shape, dtype):
                                **tol)
     # the split-K sum is taken in a fixed order: a second call is bitwise equal
     assert torch.equal(fused_dense_relu(x, w, b), got)
+
+
+def _dyadic_inputs(m, seed):
+    """x, w, b and an upstream gradient g of wd1's shape whose entries are
+    small multiples of powers of two: every product is exact, and every
+    sum of them is exact in float32 in any order, so the forward's ReLU
+    mask cannot differ between the kernel and the plain version."""
+    r = np.random.default_rng(seed)
+    x = r.integers(-8, 9, (m, 3136)) / 8
+    w = r.integers(-8, 9, (3136, 1024)) / 256
+    b = r.integers(-8, 9, 1024) / 64
+    g = r.integers(-8, 9, (m, 1024)) / 8
+    return [a.astype(np.float32) for a in (x, w, b, g)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [128, 1000])
+def test_kernel_gradient_matches_plain_autograd_on_card(cuda_device, m,
+                                                        dtype):
+    """dx, dw, db through the kernel's forward and the port's backward
+    against autograd through the plain version, at the training (M = 128)
+    and test-eval (M = 1000) shapes of wd1. On dyadic inputs every sum is
+    exact, so the two agree to the last bit but for rounding the bf16
+    outputs: rtol 2**-8 (half a bf16 ulp), atol 1e-6."""
+    x, w, b, g = (torch.from_numpy(a).to(cuda_device, dtype)
+                  for a in _dyadic_inputs(m, seed=5))
+    for t in (x, w, b):
+        t.requires_grad_()
+    before = fused_dense.LAUNCHES
+    y = fused_dense_relu(x, w, b)
+    y.backward(g)
+    assert fused_dense.LAUNCHES == before + 1  # the forward, nothing else
+    got = [t.grad.float() for t in (x, w, b)]
+    for t in (x, w, b):
+        t.grad = None
+    ref = fused_dense_relu_reference(x, w, b)
+    ref.backward(g)
+    tol = dict(rtol=2 ** -8, atol=1e-6)
+    torch.testing.assert_close(y.float(), ref.float(), **tol)
+    for name, a, t in zip(("dx", "dw", "db"), got, (x, w, b)):
+        torch.testing.assert_close(a, t.grad.float(), **tol,
+                                   msg=lambda s, n=name: f"{n}: {s}")

@@ -38,6 +38,8 @@ def test_port_and_chip_smoke_import_no_jax():
     names = _port_modules()
     assert "distributed_tensorflow_tpu_torch.serving.__main__" in names
     assert "distributed_tensorflow_tpu_torch.ops.fused_dense" in names
+    assert "distributed_tensorflow_tpu_torch.mnist_dist" in names
+    assert "distributed_tensorflow_tpu_torch.training.loop" in names
     proc = subprocess.run([sys.executable, "-c", _PROBE, *names,
                            "chip_smoke", "port_kernel_study"], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

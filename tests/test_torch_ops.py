@@ -2,6 +2,8 @@
 inputs. f32 tolerances cover a reordered float32 sum; bf16 ones cover two
 frameworks rounding the same bfloat16 products at different places."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -77,3 +79,40 @@ def test_dropout_eval_is_identity_and_train_scales():
     y = tnn.dropout(x, 0.5, g)
     assert set(torch.unique(y).tolist()) <= {0.0, 2.0}
     assert torch.count_nonzero(tnn.dropout(x, 0.0, g)) == 0
+
+
+@pytest.mark.parametrize("int_labels", [False, True])
+def test_loss_and_accuracy_match_jax(int_labels):
+    r = _rng(11)
+    logits = (r.standard_normal((16, 10)) * 3).astype(np.float32)
+    ids = r.integers(0, 10, 16)
+    labels = ids if int_labels else np.eye(10, dtype=np.float32)[ids]
+    want_loss = jnn.softmax_cross_entropy(jnp.asarray(logits),
+                                          jnp.asarray(labels))
+    want_acc = jnn.accuracy(jnp.asarray(logits), jnp.asarray(labels))
+    got_loss = tnn.softmax_cross_entropy(torch.from_numpy(logits),
+                                         torch.from_numpy(labels))
+    got_acc = tnn.accuracy(torch.from_numpy(logits), torch.from_numpy(labels))
+    np.testing.assert_allclose(got_loss.item(), float(want_loss), **_F32)
+    assert got_acc.item() == float(want_acc)
+
+
+def test_out_of_range_id_gives_zero_loss_and_gradient():
+    logits = torch.tensor([[1.0, 2.0, 3.0], [0.5, -1.0, 2.0]],
+                          requires_grad=True)
+    labels = torch.tensor([1, 7], dtype=torch.int32)  # 7: no such class
+    loss = tnn.softmax_cross_entropy(logits, labels)
+    want = jnn.softmax_cross_entropy(jnp.asarray(logits.detach().numpy()),
+                                     jnp.asarray(labels.numpy()))
+    np.testing.assert_allclose(loss.item(), float(want), **_F32)
+    loss.backward()
+    assert torch.all(logits.grad[1] == 0)
+
+
+def test_minus_inf_logit_is_not_nan():
+    logits = torch.tensor([[0.0, -math.inf, 1.0]])
+    loss = tnn.softmax_cross_entropy(logits, torch.tensor([2]))
+    assert torch.isfinite(loss)
+    np.testing.assert_allclose(
+        loss.item(), float(jnn.softmax_cross_entropy(
+            jnp.asarray(logits.numpy()), jnp.asarray([2]))), **_F32)

@@ -1,0 +1,264 @@
+"""The port's training slice as a whole against the JAX package's: both
+``train`` loops from one JAX-written step-0 checkpoint, and the port's
+entry point as a user runs it (CPU)."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from distributed_tensorflow_tpu import flags as jflags
+from distributed_tensorflow_tpu import native
+from distributed_tensorflow_tpu.checkpoint import checkpoint as jckpt
+from distributed_tensorflow_tpu.data import datasets as jdata
+from distributed_tensorflow_tpu.models.cnn import DeepCNN as JaxDeepCNN
+from distributed_tensorflow_tpu.training import adam as jadam
+from distributed_tensorflow_tpu.training import create_train_state
+from distributed_tensorflow_tpu.training.loop import train as jtrain
+from distributed_tensorflow_tpu_torch import cluster
+from distributed_tensorflow_tpu_torch import flags as tflags
+from distributed_tensorflow_tpu_torch.checkpoint import checkpoint as tckpt
+from distributed_tensorflow_tpu_torch.data import datasets as tdata
+from distributed_tensorflow_tpu_torch.training.loop import train as ttrain
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPS = 6
+
+
+@pytest.fixture
+def small_splits(monkeypatch):
+    """Both packages' synthetic splits cut to 1200/300 examples."""
+    for mod in (jdata, tdata):
+        monkeypatch.setattr(mod, "SYNTHETIC_TRAIN", 1200)
+        monkeypatch.setattr(mod, "SYNTHETIC_TEST", 300)
+
+
+@pytest.fixture
+def port_flags():
+    tflags.define_reference_flags()
+    tflags.FLAGS._reset()
+    yield tflags.FLAGS
+    tflags.FLAGS._reset()
+
+
+def _argv(logdir, tmp_path, *extra):
+    return [f"--logdir={logdir}", f"--data_dir={tmp_path}/no-data",
+            f"--training_iter={STEPS}", "--batch_size=16",
+            "--display_step=2", "--optimizer=adam", "--keep_prob=1",
+            "--save_model_secs=100000", *extra]
+
+
+def _display_losses(logdir):
+    out = {}
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "mini_batch_loss" in rec:
+                out[rec["step"]] = rec["mini_batch_loss"]
+    return out
+
+
+def _numpy_shuffle(monkeypatch):
+    """Both packages on the JAX package's numpy epoch shuffle: its
+    fallback when the native library is missing, put in the port's
+    permutation's place, so the two loops draw the same batches."""
+    monkeypatch.setattr(native, "permutation", lambda n, seed: None)
+    monkeypatch.setattr(
+        tdata, "permutation",
+        lambda n, seed: np.random.default_rng(seed).permutation(n))
+
+
+def test_train_matches_jax_from_one_checkpoint(tmp_path, small_splits,
+                                               port_flags, capsys,
+                                               monkeypatch):
+    if not native.available():
+        # the port copies the native shuffle only
+        _numpy_shuffle(monkeypatch)
+    _train_both_and_compare(tmp_path, port_flags, capsys)
+
+
+def test_train_matches_jax_on_the_numpy_shuffle(tmp_path, small_splits,
+                                                port_flags, capsys,
+                                                monkeypatch):
+    """The same comparison as where the JAX package's native library
+    does not load, wherever it does."""
+    _numpy_shuffle(monkeypatch)
+    _train_both_and_compare(tmp_path, port_flags, capsys)
+
+
+def _train_both_and_compare(tmp_path, port_flags, capsys):
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    init = create_train_state(JaxDeepCNN(), jadam(1e-3), seed=0)
+    for d in (jdir, tdir):
+        jckpt.save_checkpoint(d, init, 0)
+
+    jflags.define_reference_flags()
+    jflags.FLAGS._reset()
+    try:
+        jflags.FLAGS._parse(_argv(jdir, tmp_path, "--mfu=false",
+                                  "--async_checkpoint=false"))
+        # mode passed explicitly: the 8 CPU devices of the tests would
+        # upgrade --mode auto to sync
+        jres = jtrain(jflags.FLAGS, mode="local")
+    finally:
+        jflags.FLAGS._reset()
+    port_flags._parse(_argv(tdir, tmp_path, "--device=cpu"))
+    tres = ttrain(port_flags)
+    out = capsys.readouterr().out
+    assert "job: worker/0 step:  0 mini_batch loss: " in out
+
+    assert tres.final_step == jres.final_step == STEPS
+    with open(os.path.join(tdir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    # the run's steady state, logged when the loop ends
+    last = [r for r in recs if "step_device_s" in r][-1]
+    assert last["step"] == STEPS and last["images_per_sec"] > 0
+    assert {"step_host_wait_s", "step_dispatch_s"} <= set(last)
+    jl, tl = _display_losses(jdir), _display_losses(tdir)
+    assert sorted(tl) == sorted(jl) == [0, 2, 4]
+    # reordered float32 sums compounded over adam steps: rtol 1e-4
+    for step in jl:
+        np.testing.assert_allclose(tl[step], jl[step], rtol=1e-4)
+    for k in ("loss", "accuracy"):
+        np.testing.assert_allclose(tres.test_metrics[k],
+                                   jres.test_metrics[k], rtol=1e-4, atol=1e-6)
+    want = jckpt.load_flat(os.path.join(jdir, f"ckpt-{STEPS}.npz"))
+    got = tckpt.load_flat(os.path.join(tdir, f"ckpt-{STEPS}.npz"))
+    # the dropout key: JAX splits it every step, the port derives each
+    # step's seed from it and the step and keeps it
+    assert sorted(got) == sorted(want)
+    np.testing.assert_array_equal(got["rng"], np.asarray(init.rng))
+    for k in want:
+        if k == "rng":
+            continue
+        assert got[k].dtype == want[k].dtype, k
+        if k.startswith("params/"):
+            # adam: a weight whose gradient is summation noise moves by up
+            # to lr a step either way (tests/test_torch_train_state.py)
+            d = np.abs(got[k] - want[k])
+            assert (d > 1e-5).mean() <= 1e-4 and d.max() <= 2 * STEPS * 1e-3, k
+        elif k != "opt_state/t" and k != "step":
+            # the moments average gradients, sums whose terms cancel: their
+            # error follows the array's scale, not each entry's
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-3,
+                                       atol=1e-4 * np.abs(want[k]).max())
+        else:
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_final_save_after_a_failed_eval_holds_one_step(
+        tmp_path, small_splits, port_flags, monkeypatch):
+    """A periodic eval that raises after step 3 ends the run; the final
+    save must hold step 3's parameters, optimizer state and step together,
+    as a run that stopped at step 3 saves them."""
+    from distributed_tensorflow_tpu_torch.training import loop
+
+    def failing_eval(*args, **kwargs):
+        raise RuntimeError("eval failed")
+
+    clean, failed = str(tmp_path / "clean"), str(tmp_path / "failed")
+    port_flags._parse(_argv(clean, tmp_path, "--device=cpu",
+                            "--training_iter=3", "--test_eval=false"))
+    ttrain(port_flags)
+    port_flags._reset()
+    port_flags._parse(_argv(failed, tmp_path, "--device=cpu",
+                            "--eval_step=3"))
+    monkeypatch.setattr(loop, "evaluate", failing_eval)
+    with pytest.raises(RuntimeError, match="eval failed"):
+        ttrain(port_flags)
+    assert tckpt.latest_checkpoint(failed)[1] == 3
+    want = tckpt.load_flat(os.path.join(clean, "ckpt-3.npz"))
+    got = tckpt.load_flat(os.path.join(failed, "ckpt-3.npz"))
+    assert sorted(got) == sorted(want)
+    assert int(got["step"]) == int(got["opt_state/t"]) == 3
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_reference_flags_and_validators(port_flags):
+    port_flags._parse([])
+    assert (port_flags.batch_size, port_flags.training_iter,
+            port_flags.learning_rate, port_flags.display_step,
+            port_flags.optimizer, port_flags.keep_prob,
+            port_flags.device) == (128, 10000, 0.001, 100, "sgd", 0.75, "cuda")
+    for bad in (["--keep_prob=0"], ["--optimizer=rmsprop"],
+                ["--training_iter=0"], ["--mode=mesh"], ["--job_name=chief"]):
+        port_flags._reset()
+        with pytest.raises(ValueError):
+            port_flags._parse(bad)
+
+
+def test_modes_that_are_not_ported_raise(port_flags):
+    port_flags._parse(["--ps_hosts=a:1", "--worker_hosts=b:1"])
+    spec = cluster.ClusterSpec.from_flags(port_flags)
+    assert cluster.resolve_mode(port_flags) == "ps"
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cluster.require_ported("ps", spec)
+    port_flags._reset()
+    port_flags._parse(["--worker_hosts=a:1,b:2"])
+    spec = cluster.ClusterSpec.from_flags(port_flags)
+    assert cluster.resolve_mode(port_flags) == "sync"
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cluster.require_ported("sync", spec)
+    cluster.require_ported("sync", cluster.ClusterSpec({"worker": ["a:1"]}))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ttrain(port_flags, mode="sync")
+
+
+def _run_entry(args, env=None, timeout=240):
+    return subprocess.run(
+        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.mnist_dist",
+         *args], cwd=REPO, capture_output=True, text=True, timeout=timeout,
+        env=env)
+
+
+def test_entry_point_trains_on_the_cpu(tmp_path):
+    proc = _run_entry(["--device", "cpu", "--training_iter", "3",
+                       "--logdir", str(tmp_path / "logs"),
+                       "--data_dir", str(tmp_path / "no-data")])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = proc.stdout.splitlines()
+    assert any(line.startswith("job: worker/0 step:  0 mini_batch loss:  ")
+               and " training accuracy:  " in line for line in lines)
+    assert "Optimization Finished!" in lines
+    assert any(line.startswith("test accuracy:  ") for line in lines)
+    assert tckpt.latest_checkpoint(str(tmp_path / "logs"))[1] == 3
+
+
+def test_eval_only_restores_params_and_measures_the_test_split(
+        tmp_path, small_splits, port_flags, capsys):
+    from distributed_tensorflow_tpu_torch.models import DeepCNN
+    from distributed_tensorflow_tpu_torch.training import train_state as tts
+    from distributed_tensorflow_tpu_torch.training.loop import evaluate_only
+
+    model = DeepCNN()
+    state = tts.create_train_state(model, tts.momentum(1e-3), seed=5)
+    tckpt.save_checkpoint(str(tmp_path / "logs"), state, 12)
+    port_flags._parse(["--device=cpu", "--eval_only",
+                       f"--logdir={tmp_path}/logs",
+                       f"--data_dir={tmp_path}/no-data"])
+    got = evaluate_only(port_flags)
+    want = tts.evaluate(model,
+                        tdata.read_data_sets(str(tmp_path / "none")).test)
+    assert got == want
+    last = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert last["step"] == 12 and last["test_accuracy"] == want["accuracy"]
+
+
+def test_entry_point_without_a_card_exits_nonzero(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = _run_entry(["--training_iter", "3",
+                       "--logdir", str(tmp_path / "logs")], env=env)
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is False" in proc.stderr
+    assert "Optimization Finished!" not in proc.stdout
+
+
+def test_entry_point_rejects_flags_of_paths_not_ported(tmp_path):
+    proc = _run_entry(["--device", "cpu", "--zero=1",
+                       "--logdir", str(tmp_path / "logs")])
+    assert proc.returncode == 2
+    assert "unknown flag" in proc.stderr and "--zero=1" in proc.stderr
