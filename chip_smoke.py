@@ -40,7 +40,19 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    ``relu_`` (a yardstick the port never calls), each from CUDA events
    around a CUDA graph of many launches over rotating buffers larger than
    L2, beside the least time the card could take;
-7. the ``kernels`` JSON line, the card line, and ``{"ok": true, ...}`` last.
+7. the ``kernels`` JSON line, the card line, and ``{"ok": true, ...}`` last,
+   after phase 8;
+8. device-resident sync DP: a one-rank NCCL group on
+   ``tcp://127.0.0.1:<free port>``, then ``train(FLAGS, mode="sync")`` with
+   ``--device_data --pallas`` in f32 and in bf16 (each step one CUDA graph
+   replay with the kernel inside): 20 replayed steps against 20 eager
+   device steps on the same draws (dropout on); 300 steps that must reach
+   test accuracy 0.98, with the kernel's launches counted (eager warm-up,
+   replays, display evals, test eval); a profiled chunk whose device
+   kernels, found by name in the trace, must hold the kernel once per
+   step, all "tma"; a resume from a step off a chunk boundary that must
+   realign to the display step; then images/s/GPU, ms/step and busy share
+   of this path and of phase 5's host-fed path, in turns.
 
 Any failed phase raises, so the script exits non-zero. f32 runs in full
 f32: TF32 is turned off for cuDNN and cuBLAS.
@@ -55,6 +67,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -64,26 +77,44 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distributed_tensorflow_tpu_torch import flags
 from distributed_tensorflow_tpu_torch.checkpoint import (
     restore_with_fallback,
     save_checkpoint,
 )
-from distributed_tensorflow_tpu_torch.data import datasets, synthetic_digits
+from distributed_tensorflow_tpu_torch.cluster import (
+    ClusterSpec,
+    maybe_initialize_distributed,
+)
+from distributed_tensorflow_tpu_torch.data import (
+    datasets,
+    put_device_data,
+    read_data_sets,
+    synthetic_digits,
+)
 from distributed_tensorflow_tpu_torch.models import DeepCNN, cnn
 from distributed_tensorflow_tpu_torch.ops import _build, fused_dense
 from distributed_tensorflow_tpu_torch.ops.fused_dense import (
     fused_dense_relu,
     fused_dense_relu_reference,
 )
+from distributed_tensorflow_tpu_torch.parallel import make_mesh
 from distributed_tensorflow_tpu_torch.serving.__main__ import (
     build_serving_stack,
 )
 from distributed_tensorflow_tpu_torch.serving.server import InferenceServer
 from distributed_tensorflow_tpu_torch.training import train_state
+from distributed_tensorflow_tpu_torch.training.device_step import (
+    WARMUP_STEPS,
+    make_device_dp_train_step,
+)
 from distributed_tensorflow_tpu_torch.training.loop import train
-from distributed_tensorflow_tpu_torch.utils.pytree import params_to_numpy
+from distributed_tensorflow_tpu_torch.utils.pytree import (
+    params_to_numpy,
+    tree_leaves,
+)
 
 # H100 SXM data-sheet peaks at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -132,6 +163,10 @@ TRAJ_STEPS, TRAIN_STEPS, RESUME_STEPS, TIME_STEPS = 20, 300, 10, 150
 ACCURACY_MIN = 0.98  # test accuracy after TRAIN_STEPS
 PROFILE_STEPS = 20
 EVAL_BATCH = 1000  # the loop's test-eval batch
+
+# phase 8: steps per chunk, the timed run's steps (its first chunk, the
+# warm-up and the capture, stays out of the window), the resume's stops
+CHUNK, DEVICE_TIME_STEPS, RESUME_AT = 50, 550, (130, 230)
 
 N_REQUESTS, N_THREADS = 64, 8
 KERNEL_SRC = "distributed_tensorflow_tpu_torch/ops/csrc/fused_dense_relu.cu"
@@ -470,7 +505,7 @@ class TrainRun:
     ``metrics.jsonl``."""
 
     def __init__(self, logdir: str, data_dir: str, tag: str, pallas: bool,
-                 *extra: str):
+                 *extra: str, mode: str = "local"):
         flags.define_reference_flags()
         flags.FLAGS._reset()
         flags.FLAGS._parse(
@@ -482,7 +517,7 @@ class TrainRun:
         self.logdir = logdir
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            self.result = train(flags.FLAGS)
+            self.result = train(flags.FLAGS, mode=mode)
         self.out = buf.getvalue()
 
     def records(self, key: str) -> dict:
@@ -657,6 +692,223 @@ def phase_train_times(card: str, work: str, data_dir: str) -> dict:
     return rates
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def device_kernels(trace_path: str) -> tuple[dict[str, int], dict]:
+    """From a ``torch.profiler`` Chrome trace of replayed steps: the
+    kernel's launches on the device by variant, found by kernel name; and
+    the device's idle time between kernels, split into the gaps at the
+    boundaries between replays and the gaps inside the step's graph. A
+    replay starts with the int64 fills that copy its generators' seeds to
+    the device (``FillFunctor<long>``; the step itself fills no int64
+    tensor), so a gap that touches one of them is a boundary gap."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    counts = {"tma": 0, "simt": 0}
+    idle = {"boundary_us": 0.0, "inside_us": 0.0, "boundaries": 0}
+    end, prev_fill = None, False
+    for e in kernels:
+        # e.g. "void (anonymous namespace)::fdr_tma_kernel<float, 32>(...)"
+        name = e.get("name", "")
+        if "fdr_tma_kernel" in name:
+            counts["tma"] += 1
+        elif re.search(r"fdr_\w+_simt", name):
+            counts["simt"] += 1
+        fill = "FillFunctor<long>" in name
+        idle["boundaries"] += fill and not prev_fill
+        if end is not None and e["ts"] > end:
+            key = "boundary_us" if fill or prev_fill else "inside_us"
+            idle[key] += e["ts"] - end
+        end = max(end or 0.0, e["ts"] + e["dur"])
+        prev_fill = fill
+    return counts, idle
+
+
+def graph_vs_eager(tag: str, mesh, data) -> dict:
+    """20 device steps replayed from a CUDA graph against 20 eager device
+    steps, each from the seed-0 init, on the same draws (dropout on), with
+    cuDNN's deterministic algorithms in both."""
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for graph in (True, False):
+            model = DeepCNN(compute_dtype=(torch.bfloat16 if tag == "bf16"
+                                           else None), use_pallas=True)
+            opt = train_state.adam(1e-3)
+            state = train_state.create_train_state(model, opt, seed=0,
+                                                   device="cuda")
+            state = state._replace(step=state.step.cuda())
+            step_fn = make_device_dp_train_step(model, opt, mesh, data, 128,
+                                                keep_prob=0.75, graph=graph)
+            losses = {}
+            for s in range(TRAJ_STEPS):
+                state, m = step_fn(state, s, 1)
+                losses[s] = float(m["loss"])
+            runs[graph] = (losses, params_to_numpy(model))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (replayed, p_graph), (eager, p_eager) = runs[True], runs[False]
+    diffs = rel_diffs(replayed, eager)
+    bitwise = replayed == eager and all(
+        np.array_equal(a, b) for a, b in zip(
+            tree_leaves(p_graph), tree_leaves(p_eager)))
+    say("device", f"{tag}: {TRAJ_STEPS} steps replayed from a CUDA graph vs "
+                  f"eager device steps, keep_prob 0.75: loss "
+                  f"{eager[0]:.6f} -> {eager[TRAJ_STEPS - 1]:.6f}; max "
+                  f"|diff|/max(1,|loss|) {max(diffs):.3e} (tolerance "
+                  f"{STAND_IN_TOL[tag]}); losses and parameters bitwise "
+                  f"{'equal' if bitwise else 'DIFFERENT'}")
+    if max(diffs) > STAND_IN_TOL[tag]:
+        raise AssertionError(f"{tag}: the graph's steps leave the eager "
+                             f"steps' trajectory")
+    return {"max_rel_diff": max(diffs), "bitwise": bitwise}
+
+
+def sync_args(port: int) -> tuple[str, ...]:
+    """The flags of the device-resident sync path: rank 0 of the one-rank
+    group served on ``port``."""
+    return ("--mode", "sync", "--worker_hosts", f"127.0.0.1:{port}",
+            "--task_index", "0", "--device_data", "--device_chunk",
+            str(CHUNK))
+
+
+def phase_device_resident(tag: str, work: str, data_dir: str, mesh, data,
+                          port: int) -> dict:
+    """Phase 8: the sync-DP device-resident path through train(FLAGS)."""
+    args = sync_args(port)
+    out = graph_vs_eager(tag, mesh, data)
+
+    test_n = datasets.SYNTHETIC_TEST
+    fused_dense.LAUNCHES = 0  # the main path's run starts here
+    fused_dense.LAUNCHES_BY_VARIANT.update(tma=0, simt=0)
+    main = TrainRun(os.path.join(work, f"{tag}-dev-main"), data_dir, tag,
+                    True, "--training_iter", str(TRAIN_STEPS), *args,
+                    mode="sync")
+    launches = fused_dense.LAUNCHES  # ... and ends here
+    by_variant = dict(fused_dense.LAUNCHES_BY_VARIANT)
+    want = WARMUP_STEPS + forwards(0, TRAIN_STEPS, 100, test_n)
+    res = main.result
+    for line in main.out.splitlines():
+        if line.startswith(("job: ", "test accuracy")):
+            say("device", f"{tag}: {line}")
+    acc = res.test_metrics["accuracy"]
+    say("device", f"{tag}: {TRAIN_STEPS} device-resident steps with "
+                  f"--pallas, default keep_prob: test accuracy {acc:.4f} "
+                  f"(need >= {ACCURACY_MIN}); kernel launches {launches} "
+                  f"{by_variant} for {want} forward passes ({WARMUP_STEPS} "
+                  f"warm-up steps, {TRAIN_STEPS} replays, display evals, "
+                  f"test eval)")
+    if res.final_step != TRAIN_STEPS or not acc >= ACCURACY_MIN:
+        raise AssertionError(f"{tag}: step {res.final_step}, test accuracy "
+                             f"{acc}")
+    if launches != want or by_variant != {"tma": want, "simt": 0}:
+        raise AssertionError(f"{tag}: {launches} launches {by_variant} for "
+                             f"{want} forward passes, all to be tma")
+
+    # one profiled chunk: the kernel found on the device, once per step
+    prof_dir = os.path.join(work, f"{tag}-dev-prof")
+    prof = TrainRun(prof_dir, data_dir, tag, True, "--training_iter",
+                    str(2 * CHUNK), "--display_step", str(20 * CHUNK),
+                    "--test_eval", "false", "--profile_dir",
+                    os.path.join(prof_dir, "trace"), "--profile_steps",
+                    str(CHUNK), *args, mode="sync")
+    on_device, idle = device_kernels(os.path.join(prof_dir, "trace",
+                                                  "trace.json"))
+    busy = prof.result.device_busy_share
+    for line in prof.out.splitlines():
+        if line.strip() and not line.startswith(("job: ", "Optim")):
+            say("profile", f"{tag} device-resident | {line}")
+    say("device", f"{tag}: a profiled chunk of {CHUNK} replayed steps ran "
+                  f"the kernel {on_device} on the device (torch.profiler, by "
+                  f"kernel name); device busy share "
+                  f"{'not measured' if busy is None else f'{busy:.4f}'}; "
+                  f"idle between kernels per step: "
+                  f"{idle['inside_us'] / CHUNK:.2f} us inside the step's "
+                  f"graph, {idle['boundary_us'] / CHUNK:.2f} us at the "
+                  f"boundaries between replays ({idle['boundaries']} "
+                  f"boundaries in the trace)")
+    if on_device != {"tma": CHUNK, "simt": 0}:
+        raise AssertionError(f"{tag}: a chunk of {CHUNK} replays must run "
+                             f"the tma kernel {CHUNK} times, ran {on_device}")
+
+    # a resume from a step off a chunk boundary realigns to the display
+    res_dir = os.path.join(work, f"{tag}-dev-resume")
+    first = TrainRun(res_dir, data_dir, tag, True, "--training_iter",
+                     str(RESUME_AT[0]), "--test_eval", "false", *args,
+                     mode="sync")
+    again = TrainRun(res_dir, data_dir, tag, True, "--training_iter",
+                     str(RESUME_AT[1]), "--test_eval", "false", *args,
+                     mode="sync")
+    # the log holds both runs: the second's records start at its restore
+    restored = again.records("recovery_restore_step").get(RESUME_AT[0])
+    shown = sorted(s for s in again.records("mini_batch_loss")
+                   if s >= RESUME_AT[0])
+    say("device", f"{tag}: stopped at {first.result.final_step}, resumed "
+                  f"from {restored} to {again.result.final_step}, display "
+                  f"steps {shown}")
+    if first.result.final_step != RESUME_AT[0] or \
+            restored != RESUME_AT[0] or \
+            again.result.final_step != RESUME_AT[1] or \
+            shown != [s for s in range(*RESUME_AT) if s % 100 == 0]:
+        raise AssertionError(f"{tag}: the resume from step {RESUME_AT[0]} "
+                             f"did not realign to the display step")
+    out.update(launches=launches, accuracy=acc, busy_share=busy,
+               on_device=on_device, idle=idle)
+    return out
+
+
+def phase_device_times(card: str, work: str, data_dir: str, port: int,
+                       host: dict, device: dict) -> dict:
+    """images/s/GPU of the device-resident path and phase 5's host-fed
+    path (both --pallas), in turns: host, device, device, host."""
+    args = sync_args(port)
+    rates = {}
+    for tag in DTYPES:
+        for i, resident in enumerate((False, True, True, False)):
+            logdir = os.path.join(work, f"{tag}-turn-{i}")
+            if resident:
+                run = TrainRun(logdir, data_dir, tag, True, "--training_iter",
+                               str(DEVICE_TIME_STEPS), "--display_step",
+                               str(30 * CHUNK), "--test_eval", "false",
+                               *args, mode="sync")
+            else:
+                run = TrainRun(logdir, data_dir, tag, True, "--training_iter",
+                               str(TIME_STEPS), "--display_step",
+                               str(10 * TIME_STEPS), "--test_eval", "false")
+            rates.setdefault((tag, resident), []).append(
+                run.result.images_per_sec_per_chip)
+            last = run.result.final_step
+            split = {k: run.records(f"step_{k}_s")[last] * 1e3
+                     for k in ("host_wait", "dispatch", "device")}
+            say("times", f"{tag} {'device-resident' if resident else 'host-fed'}"
+                         f" --pallas run {i}: "
+                         f"{run.result.images_per_sec_per_chip:.1f} "
+                         f"images/s/GPU; per step: " + ", ".join(
+                             f"{k} {v:.4f} ms" for k, v in split.items())
+                         + " (StepTimer)")
+        for resident in (False, True):
+            per = rates[(tag, resident)]
+            mean = sum(per) / len(per)
+            busy = (device[tag]["busy_share"] if resident
+                    else host[(tag, True)]["busy_share"])
+            rates[(tag, resident)] = {"images_per_sec": per,
+                                      "ms_per_step": 128e3 / mean,
+                                      "busy_share": busy}
+            say("times", f"{tag} {'device-resident' if resident else 'host-fed'}"
+                         f" --pallas: {', '.join(f'{r:.1f}' for r in per)} "
+                         f"images/s/GPU (mean {mean:.1f}, "
+                         f"{128e3 / mean:.4f} ms/step); device busy share "
+                         f"{'not measured' if busy is None else f'{busy:.4f}'}"
+                         f" (torch.profiler) | {card}")
+    return rates
+
+
 def phase_times(card: str, served: dict) -> dict:
     for tag, run in served.items():
         lat = run["latency_ms"]
@@ -697,13 +949,27 @@ def main() -> int:
         data_dir = os.path.join(work, "empty")
         os.makedirs(data_dir)
         trained = {tag: phase_train(tag, work, data_dir) for tag in DTYPES}
-        phase_train_times(card, work, data_dir)
+        host_rates = phase_train_times(card, work, data_dir)
+        port = free_port()
+        maybe_initialize_distributed(
+            ClusterSpec({"worker": [f"127.0.0.1:{port}"]}), 0, "cuda")
+        try:
+            mesh = make_mesh("cuda")
+            data = put_device_data(read_data_sets(data_dir).train, "cuda")
+            resident = {tag: phase_device_resident(tag, work, data_dir, mesh,
+                                                   data, port)
+                        for tag in DTYPES}
+            phase_device_times(card, work, data_dir, port, host_rates,
+                               resident)
+        finally:
+            dist.destroy_process_group()
     times = phase_times(card, served)
     kernels = []
     for tag in DTYPES:
         t = times[(tag, SERVE_SHAPE)]
         by_path = {"serve": served[tag]["launches"],
-                   "train": trained[tag]["launches"]}
+                   "train": trained[tag]["launches"],
+                   "device_resident": resident[tag]["launches"]}
         kernels.append({
             "name": f"fused_dense_relu[{tag}]", "route": "cuda",
             "variant": "tma", "source": KERNEL_SRC, "replaces": TPU_KERNEL,

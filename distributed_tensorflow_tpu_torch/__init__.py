@@ -9,10 +9,13 @@ It imports ``torch`` and never ``jax`` or ``distributed_tensorflow_tpu``.
 Entry points run on ``cuda`` unless the caller asks for the CPU, and raise
 when no card is present instead of falling back.
 
-Ported so far, for the reference ``deep_cnn``: local training from the
+Ported so far, for the reference ``deep_cnn``: training from the
 reference's entry point (``python -m
-distributed_tensorflow_tpu_torch.mnist_dist``) and serving
-(``python -m distributed_tensorflow_tpu_torch.serving``), with the ``wd1``
-layer's fused matmul + bias + ReLU as a hand-written CUDA kernel
+distributed_tensorflow_tpu_torch.mnist_dist``), local or synchronous
+data-parallel on ``torch.distributed`` (one process per GPU), fed from
+the host or from a split resident on the device with each step replayed
+from a CUDA graph (``--device_data``); and serving (``python -m
+distributed_tensorflow_tpu_torch.serving``). The ``wd1`` layer's fused
+matmul + bias + ReLU is a hand-written CUDA kernel
 (``ops/csrc/fused_dense_relu.cu``).
 """

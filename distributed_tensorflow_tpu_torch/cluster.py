@@ -1,15 +1,23 @@
 """Cluster bootstrap: the reference's ClusterSpec and role demux.
 
 The counterpart of ``distributed_tensorflow_tpu/cluster.py``'s
-``ClusterSpec`` and ``resolve_mode``. The reference (``MNISTDist.py:94-107``)
-splits ``--ps_hosts``/``--worker_hosts`` into a two-job cluster and demuxes
-on role. Only the local mode is ported: ``require_ported`` raises for ps
-mode and for sync mode over more than one worker.
+``ClusterSpec``, ``resolve_mode`` and ``maybe_initialize_distributed``.
+The reference (``MNISTDist.py:94-107``) splits
+``--ps_hosts``/``--worker_hosts`` into a two-job cluster and demuxes on
+role. The local and sync modes are ported; ``require_ported`` raises for
+ps mode. In sync mode each worker is one process on one device, and
+joins a ``torch.distributed`` process group whose store is served by
+worker 0 (the role the chief's master service plays in the reference).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
+from datetime import timedelta
+
+import torch
+import torch.distributed as dist
 
 
 @dataclass
@@ -50,13 +58,94 @@ def resolve_mode(FLAGS) -> str:
 
 
 def require_ported(mode: str, cluster: ClusterSpec) -> None:
-    """Raise for the modes the port does not run yet: ps, and sync over
-    more than one worker. Sync over one worker is the local loop."""
+    """Raise for the mode the port does not run yet: ps."""
     if mode == "ps":
         raise NotImplementedError(
             "ps mode (the asynchronous parameter-server topology) is not "
             "yet ported to distributed_tensorflow_tpu_torch")
-    if mode == "sync" and cluster.num_tasks("worker") > 1:
-        raise NotImplementedError(
-            f"sync mode over {cluster.num_tasks('worker')} workers is not "
-            f"yet ported to distributed_tensorflow_tpu_torch")
+
+
+def _initialize_with_retry(init_fn, *, retries: int, backoff_s: float,
+                           what: str, sleep=None, cleanup_fn=None) -> None:
+    """Bounded retry with linear backoff around a cluster join.
+
+    A worker relaunched after a crash can reach the join while worker 0,
+    which serves the store, is still coming back. Attempt k waits k x
+    ``backoff_s`` (at most 30 s) after a failure; the last attempt
+    re-raises, so a dead store still fails after a bounded wait.
+    Misconfiguration (a bad address, API misuse) raises at once."""
+    sleep = sleep or time.sleep
+    for attempt in range(retries + 1):
+        try:
+            init_fn()
+            return
+        except (TypeError, ValueError, KeyError, AttributeError,
+                AssertionError):
+            raise
+        except Exception as e:  # noqa: BLE001 — connection-class errors
+            if attempt >= retries:
+                raise
+            if cleanup_fn is not None:
+                cleanup_fn()
+            delay = min(backoff_s * (attempt + 1), 30.0)
+            print(f"{what} failed (attempt {attempt + 1}/{retries + 1}: "
+                  f"{type(e).__name__}: {e}); worker 0 may still be "
+                  f"relaunching — retrying in {delay:.1f}s", flush=True)
+            sleep(delay)
+
+
+def backend_for(device) -> str:
+    """NCCL between cards, gloo between CPU processes."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def maybe_initialize_distributed(cluster: ClusterSpec, task_index: int,
+                                 device, init_retries: int = 0,
+                                 init_backoff_s: float = 2.0,
+                                 init_timeout_s: float = 0.0) -> bool:
+    """Sync mode: join the process group of ``--worker_hosts``, as rank
+    ``task_index`` of ``len(worker_hosts)``, through the TCP store at
+    ``worker_hosts[0]``; NCCL when ``device`` is a card, gloo on the CPU.
+    One worker makes a group of one (the collectives still run).
+
+    Returns True when this call made the group, False when one was
+    already initialized (it must agree with the flags). ``init_retries``
+    and ``init_backoff_s`` arm the crash-restart path
+    (``_initialize_with_retry``); ``init_timeout_s`` > 0 caps each
+    attempt's own wait for the store."""
+    workers = cluster.worker_hosts
+    if not workers:
+        raise ValueError("sync mode needs --worker_hosts (host:port of each "
+                         "worker; the first serves the store)")
+    if not 0 <= task_index < len(workers):
+        raise ValueError(f"--task_index={task_index} is not one of the "
+                         f"{len(workers)} workers in --worker_hosts")
+    device = torch.device(device)
+    backend = backend_for(device)
+    want = (task_index, len(workers), backend)
+    if dist.is_initialized():
+        have = (dist.get_rank(), dist.get_world_size(), dist.get_backend())
+        if have != want:
+            raise ValueError(f"a process group is already up as (rank, "
+                             f"world, backend) {have}; the flags ask for "
+                             f"{want}")
+        return False
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    init_method = f"tcp://{workers[0]}"
+    kwargs = dict(backend=backend, init_method=init_method, rank=task_index,
+                  world_size=len(workers))
+    if init_timeout_s > 0:
+        kwargs["timeout"] = timedelta(seconds=init_timeout_s)
+
+    def _cleanup():
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    _initialize_with_retry(
+        lambda: dist.init_process_group(**kwargs),
+        retries=max(0, int(init_retries)), backoff_s=float(init_backoff_s),
+        what=f"torch.distributed.init_process_group({init_method}, rank "
+             f"{task_index} of {len(workers)}, {backend})",
+        cleanup_fn=_cleanup)
+    return True

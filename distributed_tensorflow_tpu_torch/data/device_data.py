@@ -1,0 +1,43 @@
+"""A split resident in device memory, for the device-resident train step.
+
+The counterpart of ``distributed_tensorflow_tpu/data/device_data.py``
+(``DeviceData``, the replicated branch of ``put_device_data``). The
+reference uploads every batch from the client (the feed_dict at
+``MNISTDist.py:179,188``). Here the whole train split (MNIST: 60,000 x
+784 uint8, 47 MB) is copied to the device once, and each step gathers
+its minibatch there (``training/device_step.py``), so no batch crosses
+from the host while the model trains. Every data-parallel rank holds
+the whole split, as every reference worker reads all of MNIST
+(``MNISTDist.py:167``), and samples its own rows.
+
+Batches are sampled uniformly with replacement: statistically the
+shuffled-epoch walk of ``DataSet.next_batch``, but not its order.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class DeviceData(NamedTuple):
+    """One split on the device: ``images`` uint8 [N, 784] (the model
+    normalizes on the device, as for ``--raw_input`` batches), ``labels``
+    int32 class ids [N]."""
+
+    images: torch.Tensor
+    labels: torch.Tensor
+
+    @property
+    def num_examples(self) -> int:
+        return self.labels.shape[0]
+
+
+def put_device_data(split, device: torch.device | str) -> DeviceData:
+    """Copy a host ``DataSet`` to ``device`` in the thin-wire format
+    (``DataSet.next_batch_raw``'s: uint8 pixels, int32 ids)."""
+    images = torch.from_numpy(np.ascontiguousarray(split._raw_u8()))
+    labels = torch.from_numpy(split.labels_int.astype(np.int32))
+    return DeviceData(images.to(device), labels.to(device))

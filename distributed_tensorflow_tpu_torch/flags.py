@@ -5,7 +5,8 @@ The counterpart of ``distributed_tensorflow_tpu/flags.py``: the same
 lazily-parsed ``FLAGS`` singleton, ``DEFINE_*`` functions, parse-time
 validators and ``run(main)``. ``define_flags`` holds the flags the predict
 path reads plus the port-only ``--device``; ``define_reference_flags`` adds
-the reference's 10 flags and the flags the local training loop reads.
+the reference's 10 flags and the flags the local and sync training
+loops read.
 Names, defaults and meanings match the JAX package's, so one command line
 drives either package. Flags of paths not ported yet are not defined, and
 ``run`` rejects them instead of ignoring them.
@@ -163,9 +164,9 @@ def define_flags():
 
 def define_reference_flags():
     """The reference's 10-flag surface (MNISTDist.py:13-31) and the flags
-    the local training loop reads, with the JAX package's names, defaults
-    and validators, plus the predict path's flags (``define_flags``).
-    Idempotent."""
+    the local and sync training loops read, with the JAX package's names,
+    defaults and validators, plus the predict path's flags
+    (``define_flags``). Idempotent."""
     if "job_name" in FLAGS._defs:
         return
     define_flags()
@@ -180,11 +181,13 @@ def define_reference_flags():
     DEFINE_integer("training_iter", 10000, "Training iteration")
     DEFINE_float("learning_rate", 0.001, "Learning rate")
     DEFINE_integer("display_step", 100, "display step")
-    # --- the JAX package's extensions that the local loop reads ---
+    # --- the JAX package's extensions that the local and sync loops read
     DEFINE_string("mode", "auto", "Parallel mode: auto|local|sync|ps. auto "
                   "= 'ps' roles when --ps_hosts is set, sync when "
                   "--worker_hosts lists more than one worker, else local. "
-                  "Only local is ported")
+                  "Local and sync are ported: sync runs one process per "
+                  "device (--task_index, --device cuda:<i>) in a "
+                  "torch.distributed group served by --worker_hosts[0]")
     DEFINE_string("optimizer", "sgd", "Optimizer: sgd|momentum|adam "
                   "(reference: sgd)")
     DEFINE_float("weight_decay", 0.0, "Decoupled weight decay: the update "
@@ -225,6 +228,32 @@ def define_reference_flags():
     DEFINE_integer("accum_steps", 1, "Gradient accumulation: split each "
                    "batch into this many equal microbatches, one backward "
                    "pass each, average, then one optimizer update")
+    DEFINE_boolean("device_data", False, "Stage the train split on the "
+                   "device once and draw each batch there (no batch crosses "
+                   "from the host while training); on a card each step is "
+                   "one replay of a CUDA graph, --device_chunk replays per "
+                   "host iteration. Training batches are sampled with "
+                   "replacement rather than the reference's shuffled-epoch "
+                   "walk; display-step evals keep the reference's "
+                   "semantics on one host batch")
+    DEFINE_integer("device_chunk", 50, "Steps per chunk in --device_data "
+                   "mode (clamped to divide display_step)")
+    DEFINE_integer("coord_steps", 50, "Multi-process coordination cadence "
+                   "in steps: sync-mode processes agree on a stop with "
+                   "one tiny collective every this many steps (worst-case "
+                   "stop latency = this many extra steps)")
+    DEFINE_integer("init_retries", 8, "Bounded retries around "
+                   "torch.distributed.init_process_group for a worker "
+                   "relaunched after a crash (worker 0 may still be coming "
+                   "back); linear backoff of --init_backoff_s per attempt, "
+                   "loud failure when exhausted. 0 = fail on the first "
+                   "refusal")
+    DEFINE_float("init_backoff_s", 2.0, "Backoff unit (seconds) between "
+                 "--init_retries attempts; attempt k waits k*this, capped "
+                 "at 30s")
+    DEFINE_float("init_timeout_s", 0.0, "Per-attempt cap (seconds) on "
+                 "init_process_group's own wait for the store (0 = the "
+                 "library default)")
     DEFINE_string("profile_dir", "", "If set, trace --profile_steps "
                   "post-warm-up training steps with torch.profiler into "
                   "this dir (a Chrome trace) and report the device's busy "
@@ -280,6 +309,16 @@ def _validate_training_flags(values: dict):
              "must be >= 0 (0 = the full step budget)")
     _require(values, "decay_rate", lambda v: float(v) > 0,
              "must be > 0 (a decay factor)")
+    _require(values, "device_chunk", lambda v: int(v) >= 1,
+             "must be >= 1 (steps per chunk)")
+    _require(values, "coord_steps", lambda v: int(v) >= 1,
+             "must be >= 1 (the multi-process vote cadence)")
+    _require(values, "init_retries", lambda v: int(v) >= 0,
+             "must be >= 0 (0 = fail on the first refusal)")
+    _require(values, "init_backoff_s", lambda v: float(v) >= 0,
+             "must be >= 0 seconds")
+    _require(values, "init_timeout_s", lambda v: float(v) >= 0,
+             "must be >= 0 seconds (0 = the library default)")
     mode = values.get("mode")
     if mode not in ("auto", "local", "sync", "ps"):
         raise ValueError(f"--mode={mode!r} must be one of auto, local, "

@@ -4,15 +4,24 @@
 
 The counterpart of the repository's ``mnist_dist.py``, with the
 reference's flag surface (``MNISTDist.py:13-31``) and role demux
-(``:93-107``). Only the local loop is ported: one process training on
-``--device`` (``cuda`` by default; without a card it exits non-zero,
-and ``--device cpu`` runs on the CPU). ps mode and sync mode over more
-than one worker raise, and ``--mode auto`` never upgrades a local run to
-sync. f32 runs in full f32: TF32 is off for cuBLAS and cuDNN.
+(``:93-107``). Local mode trains one process on ``--device`` (``cuda`` by
+default; without a card it exits non-zero, and ``--device cpu`` runs on
+the CPU). Sync mode is synchronous data parallelism, one process per
+device: each worker joins a ``torch.distributed`` group (NCCL on cards,
+gloo on the CPU) through worker 0's address, trains on its share of the
+batch, and the gradients are averaged every step. ps mode raises. f32
+runs in full f32: TF32 is off for cuBLAS and cuDNN.
 
 Examples:
   python -m distributed_tensorflow_tpu_torch.mnist_dist --optimizer adam \\
       --training_iter 1000 --pallas
+  # sync DP on two cards of one host, one process each:
+  python -m distributed_tensorflow_tpu_torch.mnist_dist --mode sync \\
+      --worker_hosts localhost:2222,localhost:2223 --task_index 0 \\
+      --device cuda:0 --device_data &
+  python -m distributed_tensorflow_tpu_torch.mnist_dist --mode sync \\
+      --worker_hosts localhost:2222,localhost:2223 --task_index 1 \\
+      --device cuda:1 --device_data
   python -m distributed_tensorflow_tpu_torch.mnist_dist --device cpu \\
       --training_iter 3
 """
@@ -22,6 +31,7 @@ from __future__ import annotations
 from distributed_tensorflow_tpu_torch import flags
 from distributed_tensorflow_tpu_torch.cluster import (
     ClusterSpec,
+    maybe_initialize_distributed,
     require_ported,
     resolve_mode,
 )
@@ -30,6 +40,11 @@ FLAGS = flags.FLAGS
 
 
 def main(_):
+    import torch.distributed as dist
+
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        resolve_device,
+    )
     from distributed_tensorflow_tpu_torch.training.loop import (
         evaluate_only,
         train,
@@ -40,8 +55,18 @@ def main(_):
         evaluate_only(FLAGS)
         return 0
     mode = resolve_mode(FLAGS)
-    require_ported(mode, ClusterSpec.from_flags(FLAGS))
-    train(FLAGS, mode="local")
+    cluster = ClusterSpec.from_flags(FLAGS)
+    require_ported(mode, cluster)
+    resolve_device(FLAGS.device)  # no card and no --device cpu: raise here
+    joined = mode == "sync" and maybe_initialize_distributed(
+        cluster, FLAGS.task_index, FLAGS.device,
+        init_retries=FLAGS.init_retries, init_backoff_s=FLAGS.init_backoff_s,
+        init_timeout_s=FLAGS.init_timeout_s)
+    try:
+        train(FLAGS, mode=mode)
+    finally:
+        if joined:
+            dist.destroy_process_group()
     return 0
 
 

@@ -10,10 +10,15 @@ here.
 For CUDA tensors it launches the kernel or raises; nothing falls back.
 ``LAUNCHES`` counts the kernel's launches (``LAUNCHES_BY_VARIANT`` by
 variant), so a run can show that its main path went through the kernel.
+A call made while a CUDA graph is being captured launches nothing: it is
+recorded into the ``recording()`` that is open, and the code that
+replays the graph counts the recorded launches at each replay
+(``count_replay``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import NamedTuple
@@ -24,6 +29,7 @@ LAUNCHES = 0  # kernel launches since the last reset (a plain integer)
 # the same launches by variant: "tma" (TMA ring, wgmma in bf16, cluster
 # split-K) and "simt" (shapes TMA cannot describe)
 LAUNCHES_BY_VARIANT = {"tma": 0, "simt": 0}
+_recordings: list[dict[str, int]] = []  # open recording() dicts
 
 BLOCK_N = 64  # output columns per CTA, as in the kernel (both variants)
 # K depth of one ring stage of variant "tma": one 128-byte row of x
@@ -159,6 +165,27 @@ def _raise(lib, err: int, what: str):
                        f"(code {err})")
 
 
+@contextlib.contextmanager
+def recording():
+    """Collect, by variant, the launches recorded into a CUDA graph under
+    capture inside the block."""
+    recorded = {"tma": 0, "simt": 0}
+    _recordings.append(recorded)
+    try:
+        yield recorded
+    finally:
+        _recordings.remove(recorded)
+
+
+def count_replay(recorded: dict[str, int]) -> None:
+    """Count the launches that one replay of a graph runs: ``recorded``
+    is what its capture recorded (``recording``)."""
+    global LAUNCHES
+    for variant, n in recorded.items():
+        LAUNCHES += n
+        LAUNCHES_BY_VARIANT[variant] += n
+
+
 def _launch(x, w, b):
     global LAUNCHES
     if x.dtype not in _DTYPE_CODE:
@@ -180,8 +207,12 @@ def _launch(x, w, b):
         cfg.cluster, dev, stream)
     if err != 0:
         _raise(lib, err, f"kernel launch (M={m} N={n} K={k} {cfg})")
-    LAUNCHES += 1
-    LAUNCHES_BY_VARIANT[cfg.variant] += 1
+    if torch.cuda.is_current_stream_capturing():
+        for recorded in _recordings:
+            recorded[cfg.variant] += 1
+    else:
+        LAUNCHES += 1
+        LAUNCHES_BY_VARIANT[cfg.variant] += 1
     return out
 
 

@@ -1,5 +1,5 @@
-"""Training: the train state and step, schedules, the Supervisor and the
-local training loop."""
+"""Training: the train state and step, schedules, the device-resident
+step, the Supervisor and the local and sync training loops."""
 
 from distributed_tensorflow_tpu_torch.training.schedules import (  # noqa: F401
     get_schedule,

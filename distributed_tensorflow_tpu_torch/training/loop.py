@@ -1,7 +1,8 @@
 """The training loop: the reference's hot-loop semantics on the card.
 
 The counterpart of ``distributed_tensorflow_tpu/training/loop.py``'s
-``train``, the local branch of ``_train_once``, ``evaluate_only`` and
+``train``, the local and sync branches of ``_train_once``,
+``_train_device_resident``, ``_HostCoordinator``, ``evaluate_only`` and
 ``build_model_for``. Reference loop (``MNISTDist.py:172-188``): while not
 stopped and ``step < training_iter``, draw a minibatch; every
 ``display_step`` print job/task, step and the minibatch loss and accuracy,
@@ -9,30 +10,50 @@ evaluated *before* the update with dropout off (``:179-182``); then run one
 optimizer step. Termination is on the shared global step. On exit:
 ``sv.stop()`` and "Optimization Finished!" (``:192-193``).
 
-Batches are assembled on a host thread into pinned memory and copied to
-the card asynchronously (``data/pipeline.py``). Only the local mode is
-ported: one process, one device.
+Host-fed batches are assembled on a host thread into pinned memory and
+copied to the card asynchronously (``data/pipeline.py``). With
+``--device_data`` the split lives on the device and each step draws its
+batch there; on a card a step is one CUDA graph replay
+(``training/device_step.py``). Local mode is one process on one device.
+Sync mode is one process per device in the ``torch.distributed`` group
+the caller joined (``cluster.maybe_initialize_distributed``; the entry
+point does), with the gradients averaged every step (``parallel/``);
+more than one process agree on a stop every ``--coord_steps`` steps.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import time
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from distributed_tensorflow_tpu_torch.checkpoint import (
     latest_checkpoint,
     max_to_keep_from_flags,
     restore_with_fallback,
 )
+from distributed_tensorflow_tpu_torch.cluster import ClusterSpec
 from distributed_tensorflow_tpu_torch.data import (
     batch_iterator,
     prefetch_to_device,
+    put_device_data,
     read_data_sets,
 )
 from distributed_tensorflow_tpu_torch.models import get_model
+from distributed_tensorflow_tpu_torch.parallel import (
+    local_batch_size,
+    make_dp_eval_step,
+    make_dp_train_step,
+    make_mesh,
+    replicate_state,
+)
+from distributed_tensorflow_tpu_torch.training.device_step import (
+    DeviceTrainStep,
+)
 from distributed_tensorflow_tpu_torch.training.schedules import (
     schedule_from_flags,
 )
@@ -53,6 +74,7 @@ from distributed_tensorflow_tpu_torch.utils.metrics import MetricsLogger
 from distributed_tensorflow_tpu_torch.utils.profiling import (
     Throughput,
     busy_share,
+    collective_sync_cadence,
 )
 from distributed_tensorflow_tpu_torch.utils.telemetry import StepTimer
 
@@ -60,7 +82,8 @@ from distributed_tensorflow_tpu_torch.utils.telemetry import StepTimer
 @dataclass
 class TrainResult:
     """What a run ends with. ``images_per_sec`` covers the steps after the
-    first (warm-up) step up to the end of the loop, the device drained;
+    first (warm-up) step or chunk up to the end of the loop, the device
+    drained, over the global batch of all ``n_chips`` ranks;
     ``device_busy_share`` is the profiled window's (``--profile_dir``),
     None without one or when the trace holds no device time."""
 
@@ -69,6 +92,8 @@ class TrainResult:
     test_metrics: dict[str, float] | None
     images_per_sec: float
     device_busy_share: float | None = None
+    images_per_sec_per_chip: float = 0.0
+    n_chips: int = 1
 
 
 def build_model_for(FLAGS, meta: dict):
@@ -121,20 +146,98 @@ def _log_recovery(sv, logger, step: int) -> None:
 
 
 def train(FLAGS, mode: str = "local") -> TrainResult:
-    """Run a full training job. Only "local" (one process, one device:
-    ``--device``, which is ``cuda`` unless the caller asks for the CPU) is
-    ported; other modes raise."""
-    if mode != "local":
+    """Run a full training job. "local": one process on ``--device``
+    (``cuda`` unless the caller asks for the CPU). "sync": this process
+    is rank ``--task_index`` of the ``--worker_hosts`` group, which the
+    caller has joined (``cluster.maybe_initialize_distributed``), on its
+    own ``--device``. Other modes raise."""
+    if mode not in ("local", "sync"):
         raise NotImplementedError(
             f"mode {mode!r} is not yet ported to "
-            f"distributed_tensorflow_tpu_torch; only local is")
+            f"distributed_tensorflow_tpu_torch; local and sync are")
     return _train_once(FLAGS, mode)
+
+
+def _sync_mesh(FLAGS, device: torch.device):
+    """The data mesh of the group the caller joined, checked against the
+    flags."""
+    mesh = make_mesh(device)
+    workers = ClusterSpec.from_flags(FLAGS).num_tasks("worker")
+    if (mesh.rank, mesh.world_size) != (FLAGS.task_index, workers):
+        raise ValueError(
+            f"the process group has this process as rank {mesh.rank} of "
+            f"{mesh.world_size}; the flags say --task_index="
+            f"{FLAGS.task_index} of {workers} --worker_hosts")
+    return mesh
+
+
+class _Session:
+    """What both training loops share: the supervisor (chief = task 0),
+    the metrics logger, the meters, the periodic eval, and the stop
+    signal (the coordinator's vote when more than one process runs)."""
+
+    def __init__(self, FLAGS, model, ds, mesh):
+        n_chips = mesh.world_size if mesh is not None else 1
+        self.sv = Supervisor(is_chief=(FLAGS.task_index == 0),
+                             logdir=FLAGS.logdir,
+                             save_model_secs=FLAGS.save_model_secs,
+                             max_to_keep=max_to_keep_from_flags(FLAGS))
+        self.logger = MetricsLogger(FLAGS.logdir if self.sv.is_chief
+                                    else None,
+                                    job_name=FLAGS.job_name or "worker",
+                                    task_index=FLAGS.task_index)
+        self.meter = Throughput(FLAGS.batch_size, n_chips)
+        self.stimer = StepTimer()
+        self.periodic_eval = _periodic_test_eval(FLAGS, self.sv, model, ds,
+                                                 self.logger)
+        self.mesh = mesh
+        self.sync_every = (collective_sync_cadence(mesh.backend, n_chips)
+                           if mesh is not None else 0)
+        self.coord = (_HostCoordinator(self.sv, FLAGS.coord_steps, mesh)
+                      if n_chips > 1 else None)
+        self.should_stop = (self.coord.should_stop if self.coord is not None
+                            else self.sv.should_stop)
+
+    def start(self, box):
+        """(state, step) to train from: the restored or fresh state, rank
+        0's on every rank."""
+        state, step = box.state, box.step
+        if self.mesh is not None:
+            state = replicate_state(self.mesh, state)
+            step = int(state.step)
+            box.update(state, step)
+        _log_recovery(self.sv, self.logger, step)
+        self.periodic_eval.prime(step)
+        return state, step
+
+    def after_step(self, state, step: int) -> None:
+        self.periodic_eval(state, step)
+        if self.coord is not None:
+            self.coord.tick(step)
+        self.sv.maybe_checkpoint(state, step)
+
+    def display(self, step: int, metrics: dict) -> dict:
+        shown = {k: float(v) for k, v in metrics.items()}
+        self.logger.log_display(step, shown["loss"], shown["accuracy"])
+        self.logger.scalars(step, {"images_per_sec": self.meter.images_per_sec,
+                                   **self.stimer.scalars()})
+        self.logger.flush()
+        return shown
+
+    def close(self, step: int, images_per_sec: float) -> None:
+        # the run's steady state: the window after the warm-up
+        self.logger.scalars(step, {"images_per_sec": images_per_sec,
+                                   **self.stimer.scalars()})
 
 
 def _train_once(FLAGS, mode: str = "local") -> TrainResult:
     device = _full_f32_on(FLAGS.device)
+    mesh = _sync_mesh(FLAGS, device) if mode == "sync" else None
+    n_chips = mesh.world_size if mesh is not None else 1
+    # every process draws its own minibatches (MNISTDist.py:167,178)
+    data_seed = FLAGS.seed + (mesh.rank if n_chips > 1 else 0)
     ds = read_data_sets(FLAGS.data_dir, one_hot=True, dataset=FLAGS.dataset,
-                        seed=FLAGS.seed,
+                        seed=data_seed,
                         validation_size=FLAGS.validation_size)
     model = build_model_for(FLAGS, ds.meta)
     opt = get_optimizer(FLAGS.optimizer, schedule_from_flags(FLAGS),
@@ -143,98 +246,210 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
     clip = clip_by_global_norm(FLAGS.clip_norm) if FLAGS.clip_norm > 0 \
         else None
     accum = max(1, FLAGS.accum_steps)
-    if FLAGS.batch_size % accum:
-        raise ValueError(f"--batch_size={FLAGS.batch_size} must be "
+    if mesh is not None:
+        feed_batch = local_batch_size(FLAGS.batch_size, mesh)
+        step_fn = make_dp_train_step(model, opt, mesh,
+                                     keep_prob=FLAGS.keep_prob,
+                                     grad_transform=clip, accum_steps=accum)
+        eval_fn = make_dp_eval_step(model, mesh)
+    else:
+        feed_batch = FLAGS.batch_size
+        step_fn = make_train_step(model, opt, keep_prob=FLAGS.keep_prob,
+                                  grad_transform=clip, accum_steps=accum)
+        eval_fn = make_eval_step(model)
+    if feed_batch % accum:
+        raise ValueError(f"each process's batch of {feed_batch} (of "
+                         f"--batch_size={FLAGS.batch_size}) must be "
                          f"divisible by --accum_steps={accum}")
-    step_fn = make_train_step(model, opt, keep_prob=FLAGS.keep_prob,
-                              grad_transform=clip, accum_steps=accum)
-    eval_fn = make_eval_step(model)
+    if FLAGS.device_data:
+        if accum > 1:
+            raise ValueError("--accum_steps splits host-fed batches; a "
+                             "--device_data step draws one batch")
+        return _train_device_resident(FLAGS, device, ds, model, opt, state,
+                                      mesh, eval_fn, feed_batch, clip)
 
-    sv = Supervisor(is_chief=(FLAGS.task_index == 0), logdir=FLAGS.logdir,
-                    save_model_secs=FLAGS.save_model_secs,
-                    max_to_keep=max_to_keep_from_flags(FLAGS))
-    logger = MetricsLogger(FLAGS.logdir if sv.is_chief else None,
-                           job_name=FLAGS.job_name or "worker",
-                           task_index=FLAGS.task_index)
-    meter = Throughput(FLAGS.batch_size)
-    stimer = StepTimer()
-    last_display = {}
-    periodic_eval = _periodic_test_eval(FLAGS, sv, model, ds, logger)
-    images_per_sec = 0.0
-    busy = None
-
-    with sv.managed(state) as box:
-        state, step = box.state, box.step
-        _log_recovery(sv, logger, step)
-        periodic_eval.prime(step)
+    run = _Session(FLAGS, model, ds, mesh)
+    with run.sv.managed(state) as box:
+        state, step = run.start(box)
         batches = prefetch_to_device(
-            batch_iterator(ds.train, FLAGS.batch_size, raw=FLAGS.raw_input),
+            batch_iterator(ds.train, feed_batch, raw=FLAGS.raw_input),
             size=2, device=device)
-        profiler = None
-        profile_done = not FLAGS.profile_dir
-        warm = False
-        try:
-            meter.reset()
-            while not sv.should_stop() and step < FLAGS.training_iter:
-                t0 = time.perf_counter()
-                batch = next(batches)
-                stimer.add("host_wait", time.perf_counter() - t0)
-                if step % FLAGS.display_step == 0:
-                    m = eval_fn(batch, state.model_state)
-                    # the float() readback is where this waits for the card
-                    last_display = {k: float(v) for k, v in m.items()}
-                    logger.log_display(step, last_display["loss"],
-                                       last_display["accuracy"])
-                    logger.scalars(step, {
-                        "images_per_sec": meter.images_per_sec,
-                        **stimer.scalars()})
-                    logger.flush()
-                if warm and not profile_done and profiler is None:
-                    profiler = _start_profiler(device)
-                    profile_stop_at = step + FLAGS.profile_steps
-                t0 = time.perf_counter()
-                state, _ = step_fn(state, batch)
-                stimer.add("dispatch", time.perf_counter() - t0)
-                step += 1
-                # the step changed the parameters in place: publish the
-                # new state before anything else can raise, so the final
-                # save never pairs step-N+1 params with a step-N optimizer
-                box.update(state, step)
-                meter.step()
-                stimer.steps()
-                if not warm:
-                    # the first step carries one-time costs (cuDNN's
-                    # algorithm search, module loads): keep it out of the
-                    # throughput window and the breakdown
-                    _sync(device)
-                    meter.reset()
-                    stimer.reset()
-                    warm = True
-                if profiler is not None and step >= profile_stop_at:
-                    busy = _stop_profiler(profiler, device, FLAGS.profile_dir)
-                    profiler, profile_done = None, True
-                periodic_eval(state, step)
-                sv.maybe_checkpoint(state, step)
-            t0 = time.perf_counter()
-            _sync(device)
-            stimer.add("device", time.perf_counter() - t0)
-            images_per_sec = meter.images_per_sec
-            # the run's steady state: the window after the warm-up step
-            logger.scalars(step, {"images_per_sec": images_per_sec,
-                                  **stimer.scalars()})
-        finally:
-            if profiler is not None:
-                profiler.stop()
-            batches.close()
 
-    test_metrics = _final_test_eval(FLAGS, sv, periodic_eval, model, state,
-                                    ds, logger, step)
+        def iterate(state, step: int):
+            """One step on the next prefetched batch, which the display
+            eval also reads (MNISTDist.py:178-182)."""
+            t0 = time.perf_counter()
+            batch = next(batches)
+            run.stimer.add("host_wait", time.perf_counter() - t0)
+            shown = None
+            if step % FLAGS.display_step == 0:
+                # the float() readback is where this waits for the card
+                shown = run.display(step, eval_fn(batch, state.model_state))
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, batch)
+            run.stimer.add("dispatch", time.perf_counter() - t0)
+            return state, 1, shown
+
+        try:
+            out = _loop(FLAGS, run, device, box, state, step, iterate,
+                        window=FLAGS.profile_steps)
+        finally:
+            batches.close()
+    return _finish(FLAGS, run, model, ds, *out)
+
+
+def _train_device_resident(FLAGS, device, ds, model, opt, state, mesh,
+                           eval_fn, feed_batch: int, clip) -> TrainResult:
+    """--device_data training: the train split on the device, each step
+    drawing its batch there, ``length`` steps per host iteration (one
+    CUDA graph replay each on a card). Per training step no batch crosses
+    from the host; per display step one host batch is staged for the
+    reference's display eval (dropout off, before the update,
+    ``MNISTDist.py:179-182``)."""
+    data = put_device_data(ds.train, device)
+    chunk = max(1, math.gcd(FLAGS.display_step, max(1, FLAGS.device_chunk)))
+    if chunk != FLAGS.device_chunk:
+        print(f"--device_chunk={FLAGS.device_chunk} clamped to {chunk} so "
+              f"chunks land on --display_step={FLAGS.display_step} "
+              f"boundaries")
+    step_fn = DeviceTrainStep(model, opt, data, feed_batch,
+                              keep_prob=FLAGS.keep_prob, grad_transform=clip,
+                              mesh=mesh)
+    run = _Session(FLAGS, model, ds, mesh)
+
+    def iterate(state, step: int):
+        """The display eval on one host batch at a display step, then a
+        chunk of device steps."""
+        shown = None
+        if step % FLAGS.display_step == 0:
+            t0 = time.perf_counter()
+            batch = tuple(torch.from_numpy(a).to(device)
+                          for a in ds.train.next_batch(feed_batch))
+            run.stimer.add("host_wait", time.perf_counter() - t0)
+            shown = run.display(step, eval_fn(batch, state.model_state))
+        # realign to display boundaries after a resume from an arbitrary
+        # step, then cap at the remaining budget
+        to_boundary = -step % FLAGS.display_step or chunk
+        length = min(chunk, to_boundary, FLAGS.training_iter - step)
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, step, length)
+        run.stimer.add("dispatch", time.perf_counter() - t0)
+        return state, length, shown
+
+    with run.sv.managed(state) as box:
+        state, step = run.start(box)
+        # the learning-rate schedule reads the step inside the step
+        state = state._replace(step=state.step.to(device))
+        box.update(state, step)
+        out = _loop(FLAGS, run, device, box, state, step, iterate,
+                    window=max(FLAGS.profile_steps, chunk))
+    return _finish(FLAGS, run, model, ds, *out)
+
+
+def _loop(FLAGS, run, device, box, state, step: int, iterate, window: int):
+    """The loop both input paths share: ``iterate(state, step)`` runs one
+    host iteration (the display eval at a display step, then its train
+    steps) and returns (state, steps taken, display metrics or None).
+    The first iteration carries one-time costs (cuDNN's algorithm search,
+    module loads, a CUDA graph's warm-up and capture) and stays out of
+    the throughput window and the breakdown; ``--profile_dir`` traces
+    ``window`` steps after it. Returns (state, step, last display
+    metrics, images/s, busy share)."""
+    meter, stimer = run.meter, run.stimer
+    last_display, busy, profiler = {}, None, None
+    profile_done = not FLAGS.profile_dir
+    warm = False
+    try:
+        meter.reset()
+        while not run.should_stop() and step < FLAGS.training_iter:
+            if warm and not profile_done and profiler is None:
+                profiler = _start_profiler(device)
+                profile_stop_at = step + window
+            state, length, shown = iterate(state, step)
+            step += length
+            # the step changed the parameters in place: publish the new
+            # state before anything else can raise, so the final save
+            # never pairs step-N+1 params with a step-N optimizer
+            box.update(state, step)
+            if shown is not None:
+                last_display = shown
+            meter.step(length * FLAGS.batch_size)
+            stimer.steps(length)
+            if run.sync_every:
+                _sync(device)
+            if not warm:
+                _sync(device)
+                meter.reset()
+                stimer.reset()
+                warm = True
+            if profiler is not None and step >= profile_stop_at:
+                busy = _stop_profiler(profiler, device, FLAGS.profile_dir)
+                profiler, profile_done = None, True
+            run.after_step(state, step)
+        t0 = time.perf_counter()
+        _sync(device)
+        stimer.add("device", time.perf_counter() - t0)
+        images_per_sec = meter.images_per_sec
+        run.close(step, images_per_sec)
+    finally:
+        if profiler is not None:
+            profiler.stop()
+    return state, step, last_display, images_per_sec, busy
+
+
+def _finish(FLAGS, run, model, ds, state, step, last_display,
+            images_per_sec, busy) -> TrainResult:
+    test_metrics = _final_test_eval(FLAGS, run.sv, run.periodic_eval, model,
+                                    state, ds, run.logger, step)
     print("Optimization Finished!")
-    logger.close()
+    run.logger.close()
     return TrainResult(final_step=step, train_metrics=last_display,
                        test_metrics=test_metrics,
                        images_per_sec=images_per_sec,
-                       device_busy_share=busy)
+                       device_busy_share=busy,
+                       images_per_sec_per_chip=(images_per_sec
+                                                / run.meter.n_chips),
+                       n_chips=run.meter.n_chips)
+
+
+class _HostCoordinator:
+    """Cadenced agreement of the processes on a stop.
+
+    A stop (SIGTERM on one process, say) must take effect at the same
+    step on every process: one that left the loop alone would leave the
+    rest waiting in the next collective. Every ``every`` steps (crossing
+    semantics, ``step // every``, so a loop that advances by chunks still
+    votes once per boundary) the processes ``all_gather`` their
+    supervisors' stop flags; any stop stops everyone, and the chief's
+    final save lands at the agreed step. Between boundaries
+    ``should_stop`` reads the cached result. The JAX package's vote also
+    carries elastic-membership and straggler columns and the sharded
+    checkpoint's nonce; their modules are not ported."""
+
+    def __init__(self, sv, every: int, mesh):
+        self._sv = sv
+        self._every = max(1, every)
+        self._mesh = mesh
+        # NCCL moves device tensors, gloo host ones
+        self._device = mesh.device if mesh.backend == "nccl" else "cpu"
+        self._stop = False
+        self._boundary = None
+
+    def should_stop(self) -> bool:
+        return self._stop
+
+    def tick(self, step: int) -> None:
+        """Call once per loop iteration, after ``step`` advanced; every
+        process must call it with the same step sequence."""
+        boundary = step // self._every
+        if boundary == self._boundary:
+            return
+        self._boundary = boundary
+        mine = torch.tensor([int(self._sv.should_stop())], dtype=torch.int32,
+                            device=self._device)
+        votes = [torch.empty_like(mine) for _ in range(self._mesh.world_size)]
+        dist.all_gather(votes, mine, group=self._mesh.group)
+        self._stop = bool(torch.cat(votes).max())
 
 
 def _start_profiler(device: torch.device):

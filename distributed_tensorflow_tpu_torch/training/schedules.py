@@ -23,11 +23,13 @@ def _frac(step: torch.Tensor, decay_steps: int) -> torch.Tensor:
 
 
 def constant(learning_rate: float) -> Schedule:
-    """The reference's behavior: one fixed rate (MNISTDist.py:30)."""
+    """The reference's behavior: one fixed rate (MNISTDist.py:30). The
+    rate is filled in on ``step``'s device, with no copy from the host,
+    so a CUDA graph can capture it."""
     lr = float(learning_rate)
 
     def schedule(step):
-        return torch.tensor(lr, dtype=torch.float32, device=step.device)
+        return torch.full((), lr, dtype=torch.float32, device=step.device)
 
     return schedule
 

@@ -1,13 +1,16 @@
 """Supervisor: the reference's training orchestration.
 
-The counterpart of ``distributed_tensorflow_tpu/training/supervisor.py``
-for one process. ``tf.train.Supervisor`` (``MNISTDist.py:158-170``) owns
-chief designation (task 0), init-or-restore at session start, periodic
-chief-only checkpointing, a should_stop signal and cleanup; ``managed``
-replaces ``managed_session``: it yields the (possibly restored) state and
-writes a final checkpoint on the way out, on an error and on SIGTERM or
-SIGINT too (MNISTDist.py:169-191). The multi-host coordinated save is not
-ported.
+The counterpart of ``distributed_tensorflow_tpu/training/supervisor.py``.
+``tf.train.Supervisor`` (``MNISTDist.py:158-170``) owns chief designation
+(task 0), init-or-restore at session start, periodic chief-only
+checkpointing, a should_stop signal and cleanup; ``managed`` replaces
+``managed_session``: it yields the (possibly restored) state and writes a
+final checkpoint on the way out, on an error and on SIGTERM or SIGINT too
+(MNISTDist.py:169-191). In sync mode every process runs one: each
+restores the newest checkpoint, the loop then broadcasts rank 0's state
+(``parallel.replicate_state``), and only the chief writes. The state is
+replicated, so the monolithic format holds all of it; the coordinated
+save of sharded state is not ported.
 """
 
 from __future__ import annotations

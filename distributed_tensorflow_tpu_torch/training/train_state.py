@@ -9,7 +9,10 @@ Python function over a ``TrainState`` whose ``params`` are the model's own
 (``{"weights": {...}, "biases": {...}}``). The forward is the module's own,
 gradients come from ``torch.autograd.grad`` over those tensors, and
 ``apply_updates`` adds the updates to the parameters in place, so the
-module always holds the current parameters.
+module always holds the current parameters. The optimizers update their
+slots in place too, so one step can be captured in a CUDA graph and
+replayed (``training/device_step.py``): a replay reads and writes the
+same tensors.
 
 ``TrainState`` flattens to the JAX package's checkpoint keys
 (``params/...``, ``opt_state/...``, ``step``, ``rng``), so a checkpoint of
@@ -108,11 +111,16 @@ def sgd(learning_rate, weight_decay: float = 0.0) -> Optimizer:
     return Optimizer(init, update)
 
 
+def _assign(slots, values):
+    """Write each new value into its slot tensor, in place."""
+    return tree_map(lambda s, v: s.copy_(v), slots, values)
+
+
 def momentum(learning_rate, beta: float = 0.9,
              weight_decay: float = 0.0) -> Optimizer:
-    """SGD with momentum; the opt_state is the bare velocity tree. Weight
-    decay is decoupled: applied to the update, not fed through the
-    velocity."""
+    """SGD with momentum; the opt_state is the bare velocity tree, updated
+    in place. Weight decay is decoupled: applied to the update, not fed
+    through the velocity."""
     wd = _check_wd(weight_decay)
 
     def init(params):
@@ -120,7 +128,7 @@ def momentum(learning_rate, beta: float = 0.9,
 
     def update(grads, vel, params, step=None):
         lr = _lr_at(learning_rate, step)
-        vel = tree_map(lambda v, g: beta * v + g, vel, grads)
+        vel = _assign(vel, tree_map(lambda v, g: beta * v + g, vel, grads))
         if wd:
             updates = tree_map(lambda v, p: -lr * (v + wd * p), vel, params)
         else:
@@ -134,7 +142,8 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
          weight_decay: float = 0.0) -> Optimizer:
     """Adam in the JAX package's form: an int32 step count ``t`` and
     ``scale = lr * sqrt(1 - b2**t) / (1 - b1**t)`` taken in float32 on
-    the device. Nonzero ``weight_decay`` makes it AdamW."""
+    the device. The slots ``m``, ``v`` and ``t`` are updated in place.
+    Nonzero ``weight_decay`` makes it AdamW."""
     wd = _check_wd(weight_decay)
 
     def init(params):
@@ -145,9 +154,11 @@ def adam(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     def update(grads, st, params, step=None):
         lr = _lr_at(learning_rate, step)
-        t = st["t"] + 1
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, st["m"], grads)
-        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, st["v"], grads)
+        t = st["t"].add_(1)
+        m = _assign(st["m"], tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g,
+                                      st["m"], grads))
+        v = _assign(st["v"], tree_map(
+            lambda v_, g: b2 * v_ + (1 - b2) * g * g, st["v"], grads))
         tf_ = t.float()
         scale = lr * torch.sqrt(1 - b2 ** tf_) / (1 - b1 ** tf_)
         if wd:
@@ -182,6 +193,19 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: p.add_(u.to(p.dtype)), params, updates)
 
 
+def apply_gradients(optimizer: Optimizer, state, grads,
+                    grad_transform: Callable[[Any], Any] | None = None):
+    """``grad_transform`` (e.g. the clip), then one optimizer update
+    evaluated at ``state.step``, added to the parameters in place.
+    Returns the new opt_state; the caller advances the step."""
+    if grad_transform is not None:
+        grads = grad_transform(grads)
+    updates, opt_state = optimizer.update(grads, state.opt_state,
+                                          state.params, state.step)
+    apply_updates(state.params, updates)
+    return opt_state
+
+
 def clip_by_global_norm(max_norm: float):
     """Gradient transform: scale the whole gradient tree so its global L2
     norm is at most ``max_norm`` (``tf.clip_by_global_norm``)."""
@@ -208,12 +232,14 @@ def _mix(*words: int) -> int:
     return z
 
 
-def dropout_seed(rng: np.ndarray, step) -> int:
+def dropout_seed(rng: np.ndarray, step, rank: int = 0) -> int:
     """The dropout seed of one train step: the state's uint32[2] key
-    mixed with the global step. The masks are a function of (key, step),
-    so a resumed run draws what an uninterrupted one would; they are not
-    the JAX package's threefry masks."""
-    return _mix(int(rng[0]), int(rng[1]), int(step))
+    mixed with the global step and, past rank 0, the data-parallel rank.
+    The masks are a function of (key, step, rank), so a resumed run draws
+    what an uninterrupted one would, and rank 0 draws the single-process
+    masks; they are not the JAX package's threefry masks."""
+    seed = _mix(int(rng[0]), int(rng[1]), int(step))
+    return _mix(seed, rank) if rank else seed
 
 
 def create_train_state(model, optimizer: Optimizer, seed: int = 0,
@@ -236,10 +262,11 @@ def loss_and_metrics(model, batch, *, keep_prob=1.0, rng=None,
                      train=False, model_state=()):
     """(loss, {"metrics": {"loss", "accuracy"}, "model_state": ...}) for
     one batch through ``model``'s current parameters. ``rng`` is a
-    dropout seed (``dropout_seed``) or None for no dropout."""
+    dropout seed (``dropout_seed``), a ``torch.Generator`` seeded with
+    one, or None for no dropout."""
     x, y = batch
-    generator = None
-    if rng is not None:
+    generator = rng
+    if rng is not None and not isinstance(rng, torch.Generator):
         generator = torch.Generator(device=x.device).manual_seed(rng)
     logits = model(x, keep_prob=keep_prob, generator=generator, train=train)
     loss = nn.softmax_cross_entropy(logits, y)
@@ -301,13 +328,9 @@ def make_train_step(model, optimizer: Optimizer, keep_prob: float = 1.0,
         grads, metrics, model_state = compute_grads(
             model, state.params, batch, keep_prob=keep_prob, rng=seed,
             model_state=state.model_state, accum_steps=accum_steps)
-        if grad_transform is not None:
-            grads = grad_transform(grads)
-        updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params, state.step)
-        params = apply_updates(state.params, updates)
-        return (TrainState(params, opt_state, state.step + 1, state.rng,
-                           model_state), metrics)
+        opt_state = apply_gradients(optimizer, state, grads, grad_transform)
+        return (TrainState(state.params, opt_state, state.step + 1,
+                           state.rng, model_state), metrics)
 
     return step_fn
 

@@ -1,8 +1,10 @@
-"""Throughput metering and the device's busy share in a profiled window.
+"""Throughput metering, the collective in-flight cap and the device's
+busy share in a profiled window.
 
 The counterpart of ``distributed_tensorflow_tpu/utils/profiling.py``
-(``Throughput``). ``busy_share`` reads a ``torch.profiler`` trace, the
-port's stand-in for the JAX package's ``--profile_dir`` device trace.
+(``Throughput``, ``collective_sync_cadence``). ``busy_share`` reads a
+``torch.profiler`` trace, the port's stand-in for the JAX package's
+``--profile_dir`` device trace.
 """
 
 from __future__ import annotations
@@ -11,10 +13,11 @@ import time
 
 
 class Throughput:
-    """images/sec meter over a training window."""
+    """images/sec (and per-chip) meter over a training window."""
 
-    def __init__(self, batch_size: int):
+    def __init__(self, batch_size: int, n_chips: int = 1):
         self.batch_size = batch_size
+        self.n_chips = n_chips
         self.reset()
 
     def reset(self):
@@ -28,6 +31,22 @@ class Throughput:
     def images_per_sec(self) -> float:
         dt = time.perf_counter() - self._start
         return self._images / dt if dt > 0 else 0.0
+
+    @property
+    def images_per_sec_per_chip(self) -> float:
+        return self.images_per_sec / max(self.n_chips, 1)
+
+
+def collective_sync_cadence(backend: str | None, world_size: int) -> int:
+    """How often (in steps) a data-parallel loop must wait for the device
+    to bound the collectives in flight; 0 = never.
+
+    gloo on the CPU with more than one rank: 1. The JAX package saw two
+    collective programs in flight on one gloo pair crash the transport
+    (a preamble/size mismatch); the port's gloo collectives block, and
+    the cadence keeps that contract explicit. NCCL on the card: 0, since
+    a stream runs its collectives in enqueue order."""
+    return 1 if backend == "gloo" and world_size > 1 else 0
 
 
 def busy_share(events) -> float | None:

@@ -31,8 +31,8 @@ class StepTimer:
     def add(self, key: str, dt: float) -> None:
         self._acc[key] += dt
 
-    def steps(self) -> None:
-        self._steps += 1
+    def steps(self, n: int = 1) -> None:
+        self._steps += n
 
     def scalars(self) -> dict:
         n = max(self._steps, 1)

@@ -40,6 +40,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "distributed_tensorflow_tpu_torch.ops.fused_dense" in names
     assert "distributed_tensorflow_tpu_torch.mnist_dist" in names
     assert "distributed_tensorflow_tpu_torch.training.loop" in names
+    for new in ("parallel.mesh", "parallel.data_parallel",
+                "data.device_data", "training.device_step"):
+        assert f"distributed_tensorflow_tpu_torch.{new}" in names
     proc = subprocess.run([sys.executable, "-c", _PROBE, *names,
                            "chip_smoke", "port_kernel_study"], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
