@@ -52,7 +52,23 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    kernels, found by name in the trace, must hold the kernel once per
    step, all "tma"; a resume from a step off a chunk boundary that must
    realign to the display step; then images/s/GPU, ms/step and busy share
-   of this path and of phase 5's host-fed path, in turns.
+   of this path and of phase 5's host-fed path, in turns;
+9. ResNet-20 on synthetic CIFAR-10 (BASELINE config 4, 272,474
+   parameters, batch-norm running stats as ``model_state``), through
+   ``train(FLAGS)`` in f32 and in bf16: 250 host-fed ``--augment`` steps
+   (adam at 1e-3, batch 128) that must reach the JAX package's test
+   accuracy at this recipe less 0.05 (0.635 f32, 0.5585 bf16), the final
+   checkpoint's ``model_state`` restored bitwise and a resumed run that
+   keeps it (its test accuracy normalizes by the restored stats); 20
+   steps of ``--mode sync --device_data --augment`` replayed from a CUDA
+   graph against 20 eager device steps on the same draws, losses,
+   parameters and running stats bitwise under ``cudnn.deterministic``;
+   then images/s/GPU and ms/step of the device-resident path at the
+   JAX package's bench recipe (momentum 0.1, batch 512, chunk 50) and of
+   the host-fed path at batch 128, in turns, with each one's busy share,
+   kernels per step, idle between kernels and top kernels by device time
+   from ``torch.profiler``. The slice adds no kernel: ``fused_dense_relu``
+   must not launch here.
 
 Any failed phase raises, so the script exits non-zero. f32 runs in full
 f32: TF32 is turned off for cuDNN and cuBLAS.
@@ -94,7 +110,8 @@ from distributed_tensorflow_tpu_torch.data import (
     read_data_sets,
     synthetic_digits,
 )
-from distributed_tensorflow_tpu_torch.models import DeepCNN, cnn
+from distributed_tensorflow_tpu_torch.models import DeepCNN, ResNet20, cnn
+from distributed_tensorflow_tpu_torch.ops.augment import make_augment
 from distributed_tensorflow_tpu_torch.ops import _build, fused_dense
 from distributed_tensorflow_tpu_torch.ops.fused_dense import (
     fused_dense_relu,
@@ -112,7 +129,9 @@ from distributed_tensorflow_tpu_torch.training.device_step import (
 )
 from distributed_tensorflow_tpu_torch.training.loop import train
 from distributed_tensorflow_tpu_torch.utils.pytree import (
+    flatten_pytree,
     params_to_numpy,
+    state_to_numpy,
     tree_leaves,
 )
 
@@ -167,6 +186,24 @@ EVAL_BATCH = 1000  # the loop's test-eval batch
 # phase 8: steps per chunk, the timed run's steps (its first chunk, the
 # warm-up and the capture, stays out of the window), the resume's stops
 CHUNK, DEVICE_TIME_STEPS, RESUME_AT = 50, 550, (130, 230)
+
+# phase 9: ResNet-20 on synthetic CIFAR-10. The host-fed recipe and its
+# bar: the JAX package's test accuracy at this recipe on a CPU (0.6850
+# in f32, 0.6085 in bf16; PERF.md), less 0.05. The JAX package climbs
+# one class at a time and the port's trained test accuracy moves by a
+# class between runs, so the recipe stops where the JAX reading is still
+# climbing (at 300 steps it reads 0.9135, and the port read 0.90 once)
+RESNET_ARGS = ("--model", "resnet20", "--dataset", "cifar10")
+RESNET_STEPS, RESNET_RESUME_STEPS = 250, 10
+RESNET_ACCURACY_MIN = {"f32": 0.635, "bf16": 0.5585}
+# the JAX package's bench recipe (bench.py resnet_phase): momentum 0.1,
+# batch 512, device-resident, chunk 50; the host-fed path at batch 128
+RESNET_BENCH = ("--optimizer", "momentum", "--learning_rate", "0.1")
+RESNET_BATCH = {"device": 512, "host": 128}
+RESNET_TIME_STEPS = {"device": 150, "host": 40}
+# the profiled windows: 10 steps, on the device path one chunk of 10
+RESNET_PROFILE_STEPS = 10
+CIFAR_META = {"image_size": 32, "channels": 3}
 
 N_REQUESTS, N_THREADS = 64, 8
 KERNEL_SRC = "distributed_tensorflow_tpu_torch/ops/csrc/fused_dense_relu.cu"
@@ -909,6 +946,187 @@ def phase_device_times(card: str, work: str, data_dir: str, port: int,
     return rates
 
 
+def resnet_graph_vs_eager(tag: str, mesh, data) -> dict:
+    """Phase 9: 20 ResNet-20 device steps with --augment replayed from a
+    CUDA graph against 20 eager device steps, each from the seed-0 init,
+    on the same draws (batches, crops and flips), with cuDNN's
+    deterministic algorithms: losses, parameters and running stats."""
+    runs = {}
+    aug = make_augment(CIFAR_META)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for graph in (True, False):
+            model = ResNet20(compute_dtype=(torch.bfloat16 if tag == "bf16"
+                                            else None))
+            opt = train_state.adam(1e-3)
+            state = train_state.create_train_state(model, opt, seed=0,
+                                                   device="cuda")
+            state = state._replace(step=state.step.cuda())
+            step_fn = make_device_dp_train_step(model, opt, mesh, data, 128,
+                                                graph=graph, augment_fn=aug)
+            losses = {}
+            for s in range(TRAJ_STEPS):
+                state, m = step_fn(state, s, 1)
+                losses[s] = float(m["loss"])
+            runs[graph] = (losses, params_to_numpy(model),
+                           state_to_numpy(model))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (replayed, p_graph, s_graph), (eager, p_eager, s_eager) = \
+        runs[True], runs[False]
+    same = {"losses": replayed == eager,
+            "params": all(np.array_equal(a, b) for a, b in zip(
+                tree_leaves(p_graph), tree_leaves(p_eager))),
+            "bn_stats": all(np.array_equal(a, b) for a, b in zip(
+                tree_leaves(s_graph), tree_leaves(s_eager)))}
+    moved = float(np.abs(s_graph["stem"]["bn"]["mean"]).max())
+    say("resnet", f"{tag}: {TRAJ_STEPS} ResNet-20 --augment steps replayed "
+                  f"from a CUDA graph vs eager device steps: loss "
+                  f"{eager[0]:.6f} -> {eager[TRAJ_STEPS - 1]:.6f}; bitwise "
+                  f"equal: {same}; max |stem bn mean| {moved:.4f}")
+    if not all(same.values()) or not moved > 0:
+        raise AssertionError(f"{tag}: the ResNet graph's steps differ from "
+                             f"eager steps ({same})")
+    return same
+
+
+def phase_resnet(tag: str, work: str, data_dir: str, mesh, data) -> dict:
+    """Phase 9: host-fed --augment training to the bar, the checkpoint's
+    model_state restored and resumed, graph replays against eager."""
+    launched = fused_dense.LAUNCHES
+    logdir = os.path.join(work, f"{tag}-resnet")
+    main = TrainRun(logdir, data_dir, tag, False, *RESNET_ARGS, "--augment",
+                    "--training_iter", str(RESNET_STEPS))
+    res = main.result
+    for line in main.out.splitlines():
+        if line.startswith(("job: ", "test accuracy")):
+            say("resnet", f"{tag}: {line}")
+    acc = res.test_metrics["accuracy"]
+    say("resnet", f"{tag}: {RESNET_STEPS} host-fed --augment steps (adam "
+                  f"1e-3, batch 128): test accuracy {acc:.4f} (need >= "
+                  f"{RESNET_ACCURACY_MIN[tag]}); {res.images_per_sec:.1f} "
+                  f"images/s")
+    if res.final_step != RESNET_STEPS or \
+            not acc >= RESNET_ACCURACY_MIN[tag]:
+        raise AssertionError(f"{tag}: ResNet-20 step {res.final_step}, test "
+                             f"accuracy {acc}")
+
+    # the final checkpoint's running stats restore bitwise ...
+    model = ResNet20(compute_dtype=torch.bfloat16 if tag == "bf16" else None)
+    template = train_state.create_train_state(model, train_state.adam(1e-3))
+    restored = restore_with_fallback(logdir, template)
+    saved = np.load(os.path.join(logdir, f"ckpt-{RESNET_STEPS}.npz"))
+    keys = [k for k in saved.files if k.startswith("model_state/")]
+    got = flatten_pytree(restored[0]) if restored is not None else {}
+    if restored is None or restored[1] != RESNET_STEPS or len(keys) != 42 \
+            or any(not np.array_equal(got[k], saved[k]) for k in keys) \
+            or not np.abs(got["model_state/stem/bn/mean"]).max() > 0:
+        raise AssertionError(f"{tag}: the final checkpoint's model_state did "
+                             f"not restore")
+    # ... and a resumed run normalizes its test eval by them
+    stop = RESNET_STEPS + RESNET_RESUME_STEPS
+    again = TrainRun(logdir, data_dir, tag, False, *RESNET_ARGS, "--augment",
+                     "--training_iter", str(stop))
+    resumed = again.records("recovery_restore_step").get(RESNET_STEPS)
+    acc2 = again.result.test_metrics["accuracy"]
+    say("resnet", f"{tag}: {len(keys)} model_state arrays restored bitwise; "
+                  f"resumed from step {resumed} to "
+                  f"{again.result.final_step}, test accuracy {acc2:.4f}")
+    if resumed != RESNET_STEPS or again.result.final_step != stop or \
+            not acc2 >= RESNET_ACCURACY_MIN[tag]:
+        raise AssertionError(f"{tag}: the ResNet resume lost its state")
+    same = resnet_graph_vs_eager(tag, mesh, data)
+    if fused_dense.LAUNCHES != launched:
+        raise AssertionError("the ResNet path launched fused_dense_relu")
+    return {"accuracy": acc, "resumed_accuracy": acc2, "graph_bitwise": same}
+
+
+def trace_kernels(trace_path: str, steps: int) -> dict:
+    """From a ``torch.profiler`` Chrome trace: kernels per step, the idle
+    time between kernels per step, and the top kernels by device time."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    idle, end, by_name = 0.0, None, {}
+    for e in kernels:
+        if end is not None and e["ts"] > end:
+            idle += e["ts"] - end
+        end = max(end or 0.0, e["ts"] + e["dur"])
+        name = e.get("name", "")[:90]
+        by_name[name] = by_name.get(name, 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"kernels_per_step": len(kernels) / steps,
+            "idle_us_per_step": idle / steps,
+            "busy_us_per_step": sum(by_name.values()) / steps,
+            "top_us_per_step": [(n, t / steps) for n, t in top]}
+
+
+def phase_resnet_times(card: str, work: str, data_dir: str,
+                       port: int) -> dict:
+    """Phase 9: images/s/GPU and ms/step of ResNet-20 device-resident at
+    the bench recipe and host-fed at batch 128, in turns (host, device,
+    device, host), then one profiled window of each."""
+    sync = sync_args(port)
+    rates = {}
+
+    def run(tag, path, logdir, steps, *extra):
+        args = ["--training_iter", str(steps), "--display_step",
+                str(10 * steps), "--test_eval", "false", "--batch_size",
+                str(RESNET_BATCH[path]), *RESNET_ARGS, *RESNET_BENCH, *extra]
+        if path == "device":  # extra flags after the sync ones win
+            return TrainRun(logdir, data_dir, tag, False, *sync, *args,
+                            mode="sync")
+        return TrainRun(logdir, data_dir, tag, False, *args)
+
+    for tag in DTYPES:
+        for i, path in enumerate(("host", "device", "device", "host")):
+            r = run(tag, path, os.path.join(work, f"{tag}-rn-turn-{i}"),
+                    RESNET_TIME_STEPS[path])
+            rates.setdefault((tag, path), []).append(
+                r.result.images_per_sec_per_chip)
+            last = r.result.final_step
+            split = {k: r.records(f"step_{k}_s")[last] * 1e3
+                     for k in ("host_wait", "dispatch", "device")}
+            say("times", f"{tag} ResNet-20 {path} run {i}: "
+                         f"{r.result.images_per_sec_per_chip:.1f} "
+                         f"images/s/GPU; per step: " + ", ".join(
+                             f"{k} {v:.4f} ms" for k, v in split.items())
+                         + " (StepTimer)")
+        for path in ("host", "device"):
+            steps = RESNET_PROFILE_STEPS
+            prof_dir = os.path.join(work, f"{tag}-rn-prof-{path}")
+            r = run(tag, path, prof_dir, 2 * steps, "--device_chunk",
+                    str(steps), "--profile_dir",
+                    os.path.join(prof_dir, "trace"), "--profile_steps",
+                    str(steps))
+            busy = r.result.device_busy_share
+            tk = trace_kernels(os.path.join(prof_dir, "trace", "trace.json"),
+                               steps)
+            for line in r.out.splitlines():
+                if line.strip() and not line.startswith(("job: ", "Optim")):
+                    say("profile", f"{tag} ResNet-20 {path} | {line}")
+            per = rates[(tag, path)]
+            mean = sum(per) / len(per)
+            ms = RESNET_BATCH[path] * 1e3 / mean
+            rates[(tag, path)] = {"images_per_sec": per, "ms_per_step": ms,
+                                  "busy_share": busy, **tk}
+            say("times", f"{tag} ResNet-20 {path} (batch "
+                         f"{RESNET_BATCH[path]}, momentum 0.1): "
+                         f"{', '.join(f'{v:.1f}' for v in per)} images/s/GPU "
+                         f"(mean {mean:.1f}, {ms:.4f} ms/step); device busy "
+                         f"share {'not measured' if busy is None else f'{busy:.4f}'}"
+                         f" over {steps} steps (torch.profiler); "
+                         f"{tk['kernels_per_step']:.1f} kernels/step, "
+                         f"{tk['busy_us_per_step']:.1f} us busy and "
+                         f"{tk['idle_us_per_step']:.1f} us idle between "
+                         f"kernels per step | {card}")
+            for name, us in tk["top_us_per_step"]:
+                say("times", f"{tag} ResNet-20 {path} top kernel: "
+                             f"{us:.2f} us/step {name}")
+    return rates
+
+
 def phase_times(card: str, served: dict) -> dict:
     for tag, run in served.items():
         lat = run["latency_ms"]
@@ -961,6 +1179,11 @@ def main() -> int:
                         for tag in DTYPES}
             phase_device_times(card, work, data_dir, port, host_rates,
                                resident)
+            cifar = put_device_data(
+                read_data_sets(data_dir, dataset="cifar10").train, "cuda")
+            for tag in DTYPES:
+                phase_resnet(tag, work, data_dir, mesh, cifar)
+            phase_resnet_times(card, work, data_dir, port)
         finally:
             dist.destroy_process_group()
     times = phase_times(card, served)

@@ -1,5 +1,6 @@
-"""Data: the reference's datasets (IDX files or procedural digits), the
-pinned-memory prefetch to the card and the device-resident split."""
+"""Data: the reference's datasets (IDX files, CIFAR-10 pickles or
+procedural sets), the pinned-memory prefetch to the card and the
+device-resident split."""
 
 from distributed_tensorflow_tpu_torch.data.datasets import (  # noqa: F401
     DataSet,
@@ -15,5 +16,6 @@ from distributed_tensorflow_tpu_torch.data.pipeline import (  # noqa: F401
     prefetch_to_device,
 )
 from distributed_tensorflow_tpu_torch.data.synthetic import (  # noqa: F401
+    synthetic_cifar,
     synthetic_digits,
 )

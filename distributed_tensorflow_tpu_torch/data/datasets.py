@@ -1,13 +1,15 @@
 """Dataset objects with the reference's input-data semantics.
 
 The counterpart of ``distributed_tensorflow_tpu/data/datasets.py`` for
-``mnist`` and ``fashion_mnist``: ``read_data_sets(data_dir, one_hot=True)``
+``mnist``, ``fashion_mnist`` and ``cifar10``:
+``read_data_sets(data_dir, one_hot=True)``
 plus per-worker ``next_batch(batch_size)``, every worker drawing its own
 independently shuffled minibatches (``MNISTDist.py:167,178``), and
 ``DataSet.shard`` for disjoint shards.
 
-Sources, in priority order: IDX files in ``data_dir``, then the
-procedural digits of ``synthetic.py``. Other datasets are not ported yet.
+Sources, in priority order: IDX files (MNIST) or the CIFAR-10 python
+pickles in ``data_dir``, then the procedural sets of ``synthetic.py``.
+The token dataset ``lm`` is not ported yet.
 
 The epoch shuffle is the JAX package's native one (``native/fastdata.cpp``
 ``permutation``: Fisher-Yates driven by xorshift64*), written here in
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import functools
 import os
+import pickle
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -184,7 +187,7 @@ class Datasets:
     train: DataSet
     test: DataSet
     validation: DataSet | None = None
-    source: str = "synthetic"  # "idx" | "synthetic"
+    source: str = "synthetic"  # "idx" | "cifar" | "synthetic"
     meta: dict = field(default_factory=dict)
 
 
@@ -195,12 +198,45 @@ def _load_mnist_idx(data_dir: str) -> dict[str, np.ndarray] | None:
     return {k: read_idx(p) for k, p in paths.items()}
 
 
+def _load_cifar10(data_dir: str):
+    """The CIFAR-10 python-version pickle batches (``data_batch_1..5``,
+    ``test_batch``, in ``data_dir`` or its ``cifar-10-batches-py``) ->
+    (train images, train labels, test images, test labels), images
+    float32 [N, 32, 32, 3] in [0, 1]; None when a file is missing."""
+    def _find(name):
+        for root in (data_dir, os.path.join(data_dir, "cifar-10-batches-py")):
+            p = os.path.join(root, name)
+            if os.path.exists(p):
+                return p
+        return None
+
+    train_paths = [_find(f"data_batch_{i}") for i in range(1, 6)]
+    test_path = _find("test_batch")
+    if not all(train_paths) or test_path is None:
+        return None
+
+    def _read(p):
+        with open(p, "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        x = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        return x.astype(np.float32) / 255.0, np.asarray(d[b"labels"], np.int64)
+
+    xs, ys = zip(*[_read(p) for p in train_paths])
+    tx, ty = _read(test_path)
+    return np.concatenate(xs), np.concatenate(ys), tx, ty
+
+
+_SYNTHETIC = {"mnist": synthetic.synthetic_digits,
+              "cifar10": synthetic.synthetic_cifar}
+
+
 @functools.lru_cache(maxsize=4)
-def _synthetic_split(num: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
-    """``synthetic.synthetic_digits`` made read-only and kept for reuse:
-    rendering 20,000 digits takes seconds, and every array is a pure
-    function of (num, seed)."""
-    images, labels = synthetic.synthetic_digits(num, seed=seed)
+def _synthetic_split(num: int, seed: int,
+                     kind: str = "mnist") -> tuple[np.ndarray, np.ndarray]:
+    """A procedural split (``synthetic_digits`` or ``synthetic_cifar``)
+    made read-only and kept for reuse: rendering 20,000 examples takes
+    seconds, and every array is a pure function of (num, seed, kind)."""
+    images, labels = _SYNTHETIC[kind](num, seed=seed)
     images.setflags(write=False)
     labels.setflags(write=False)
     return images, labels
@@ -211,27 +247,45 @@ def read_data_sets(data_dir: str, one_hot: bool = True,
                    validation_size: int = 0) -> Datasets:
     """API parity with the tutorial loader the reference imports
     (``MNISTDist.py:11,167``) for "mnist" and "fashion_mnist" (the same
-    IDX format). Falls back to procedural digits when the files are
-    absent (offline hosts)."""
+    IDX format) and "cifar10" (the python pickles; float32 images, which
+    the thin-wire and device-resident paths quantize to uint8 once).
+    Falls back to procedural data when the files are absent (offline
+    hosts)."""
     dataset = dataset.lower().replace("-", "_")
-    if dataset not in ("mnist", "fashion_mnist"):
+    have_dir = bool(data_dir) and os.path.isdir(data_dir)
+    if dataset in ("mnist", "fashion_mnist"):
+        raw = _load_mnist_idx(data_dir) if have_dir else None
+        if raw is not None:
+            # keep u8 storage: batches normalize on demand
+            trx = raw["train_images"].reshape(-1, 784)
+            trl = raw["train_labels"].astype(np.int64)
+            tex = raw["test_images"].reshape(-1, 784)
+            tel = raw["test_labels"].astype(np.int64)
+            source = "idx"
+        else:
+            trx, trl = _synthetic_split(SYNTHETIC_TRAIN, seed)
+            tex, tel = _synthetic_split(SYNTHETIC_TEST, seed + 1)
+            source = "synthetic"
+        meta = {"image_size": 28, "channels": 1, "num_classes": 10,
+                "flat": True}
+    elif dataset == "cifar10":
+        raw = _load_cifar10(data_dir) if have_dir else None
+        if raw is not None:
+            trx, trl, tex, tel = raw
+            source = "cifar"
+        else:
+            trx, trl = _synthetic_split(SYNTHETIC_TRAIN, seed, "cifar10")
+            tex, tel = _synthetic_split(SYNTHETIC_TEST, seed + 1, "cifar10")
+            source = "synthetic"
+        meta = {"image_size": 32, "channels": 3, "num_classes": 10,
+                "flat": False}
+    elif dataset == "lm":
         raise NotImplementedError(
-            f"dataset {dataset!r} is not yet ported to "
-            f"distributed_tensorflow_tpu_torch; mnist and fashion_mnist are")
-    raw = _load_mnist_idx(data_dir) \
-        if data_dir and os.path.isdir(data_dir) else None
-    if raw is not None:
-        # keep u8 storage: batches normalize on demand
-        trx = raw["train_images"].reshape(-1, 784)
-        trl = raw["train_labels"].astype(np.int64)
-        tex = raw["test_images"].reshape(-1, 784)
-        tel = raw["test_labels"].astype(np.int64)
-        source = "idx"
+            "dataset 'lm' is not yet ported to "
+            "distributed_tensorflow_tpu_torch; mnist, fashion_mnist and "
+            "cifar10 are")
     else:
-        trx, trl = _synthetic_split(SYNTHETIC_TRAIN, seed)
-        tex, tel = _synthetic_split(SYNTHETIC_TEST, seed + 1)
-        source = "synthetic"
-    meta = {"image_size": 28, "channels": 1, "num_classes": 10, "flat": True}
+        raise ValueError(f"unknown dataset {dataset!r}")
 
     val = None
     if validation_size:

@@ -4,7 +4,8 @@ The counterpart of ``distributed_tensorflow_tpu/data/device_data.py``
 (``DeviceData``, the replicated branch of ``put_device_data``). The
 reference uploads every batch from the client (the feed_dict at
 ``MNISTDist.py:179,188``). Here the whole train split (MNIST: 60,000 x
-784 uint8, 47 MB) is copied to the device once, and each step gathers
+784 uint8, 47 MB; CIFAR-10: 50,000 x 3072 uint8, 154 MB) is copied to
+the device once, and each step gathers
 its minibatch there (``training/device_step.py``), so no batch crosses
 from the host while the model trains. Every data-parallel rank holds
 the whole split, as every reference worker reads all of MNIST
@@ -23,9 +24,9 @@ import torch
 
 
 class DeviceData(NamedTuple):
-    """One split on the device: ``images`` uint8 [N, 784] (the model
-    normalizes on the device, as for ``--raw_input`` batches), ``labels``
-    int32 class ids [N]."""
+    """One split on the device: ``images`` uint8 [N, H*W*C] (784 for
+    MNIST, 3072 for CIFAR-10; the model normalizes on the device, as for
+    ``--raw_input`` batches), ``labels`` int32 class ids [N]."""
 
     images: torch.Tensor
     labels: torch.Tensor

@@ -1,9 +1,10 @@
-"""Procedural offline digits, numpy only.
+"""Procedural offline datasets, numpy only.
 
 The counterpart of ``distributed_tensorflow_tpu/data/synthetic.py``'s
-``synthetic_digits``, kept byte-identical for the same seed: digits
-rendered from a 5x7 bitmap font at random sub-pixel offsets with noise and
-contrast jitter. Every array is a pure function of the seed.
+``synthetic_digits`` and ``synthetic_cifar``, kept byte-identical for the
+same seed: digits rendered from a 5x7 bitmap font at random sub-pixel
+offsets with noise and contrast jitter, and class-conditional colored
+textures for CIFAR. Every array is a pure function of the seed.
 """
 
 from __future__ import annotations
@@ -57,3 +58,26 @@ def synthetic_digits(
     labels = rng.integers(0, num_classes, size=num)
     images = np.stack([_render(int(d) % 10, rng, size) for d in labels])
     return images.reshape(num, size * size).astype(np.float32), labels.astype(np.int64)
+
+
+def synthetic_cifar(
+    num: int, seed: int = 0, size: int = 32, num_classes: int = 10
+) -> tuple[np.ndarray, np.ndarray]:
+    """Class-conditional colored textures, (images [num, size, size, 3]
+    float32 in [0,1], labels [num] int64).
+
+    Each class is a fixed random 4x4x3 texture (from its own generator,
+    seeded 12345, so every split shares the classes) tiled up, rolled by
+    a random shift, with Gaussian noise."""
+    rng = np.random.default_rng(seed)
+    tex_rng = np.random.default_rng(12345)
+    textures = tex_rng.random((num_classes, 4, 4, 3)).astype(np.float32)
+    labels = rng.integers(0, num_classes, size=num)
+    reps = size // 4
+    imgs = np.empty((num, size, size, 3), dtype=np.float32)
+    for i, lab in enumerate(labels):
+        base = np.tile(textures[lab], (reps, reps, 1))
+        shift = rng.integers(0, 4, size=2)
+        base = np.roll(base, tuple(shift), axis=(0, 1))
+        imgs[i] = np.clip(base + rng.normal(0, 0.15, base.shape), 0.0, 1.0)
+    return imgs, labels.astype(np.int64)

@@ -127,8 +127,10 @@ def define_flags():
     JAX package's) plus ``--device``. Idempotent."""
     if "device" in FLAGS._defs:
         return
-    DEFINE_string("model", "deep_cnn", "Model architecture (ported: "
-                  "deep_cnn)")
+    DEFINE_string("model", "deep_cnn", "Model architecture: "
+                  "deep_cnn|mlp|resnet20|resnet32 (mlp reads "
+                  "--hidden_units)")
+    DEFINE_integer("hidden_units", 100, "Number of units in the hidden layer of the NN")
     DEFINE_string("dataset", "mnist", "Dataset the model was trained on: "
                   "mnist|fashion_mnist|cifar10 (sets the input shape)")
     DEFINE_boolean("bf16", False, "Run matmuls/convs in bfloat16")
@@ -176,7 +178,6 @@ def define_reference_flags():
     DEFINE_string("worker_hosts", "", "Comma-separated list of hostname:port pairs")
     DEFINE_string("job_name", "", "One of 'ps', 'worker'")
     DEFINE_integer("task_index", 0, "Index of task within the job")
-    DEFINE_integer("hidden_units", 100, "Number of units in the hidden layer of the NN")
     DEFINE_integer("batch_size", 128, "Training batchsize")
     DEFINE_integer("training_iter", 10000, "Training iteration")
     DEFINE_float("learning_rate", 0.001, "Learning rate")
@@ -225,6 +226,12 @@ def define_reference_flags():
                    "the full --training_iter budget)")
     DEFINE_float("decay_rate", 0.96, "Decay factor per --decay_steps for "
                  "--lr_schedule=exponential")
+    DEFINE_boolean("augment", False, "Data augmentation on the device, "
+                   "inside the train step: zero-pad by --augment_pad, "
+                   "random crop back, and, for 3-channel natural images "
+                   "only, random horizontal flip (digits are never "
+                   "mirrored). Host-fed, sync and --device_data paths")
+    DEFINE_integer("augment_pad", 4, "Padding for --augment's random crop")
     DEFINE_integer("accum_steps", 1, "Gradient accumulation: split each "
                    "batch into this many equal microbatches, one backward "
                    "pass each, average, then one optimizer update")
@@ -309,6 +316,8 @@ def _validate_training_flags(values: dict):
              "must be >= 0 (0 = the full step budget)")
     _require(values, "decay_rate", lambda v: float(v) > 0,
              "must be > 0 (a decay factor)")
+    _require(values, "augment_pad", lambda v: int(v) >= 0,
+             "must be >= 0 (crop padding)")
     _require(values, "device_chunk", lambda v: int(v) >= 1,
              "must be >= 1 (steps per chunk)")
     _require(values, "coord_steps", lambda v: int(v) >= 1,
@@ -335,6 +344,10 @@ def _validate_training_flags(values: dict):
     if dataset not in ("mnist", "fashion_mnist", "cifar10", "lm"):
         raise ValueError(f"--dataset={dataset!r} must be one of mnist, "
                          f"fashion_mnist, cifar10, lm")
+    if values.get("augment") and dataset == "lm":
+        raise ValueError(
+            "--augment crops/flips images; --dataset=lm feeds token "
+            "sequences with no image layout to augment — drop one")
     job = values.get("job_name")
     if job not in ("", "ps", "worker"):
         raise ValueError(

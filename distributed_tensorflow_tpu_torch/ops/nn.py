@@ -1,8 +1,9 @@
-"""Neural-net ops of the deep CNN, in PyTorch.
+"""Neural-net ops of the ported models, in PyTorch.
 
 The counterpart of ``distributed_tensorflow_tpu/ops/nn.py`` (``conv2d``,
 ``maxpool2d``, ``dense``, ``normalize_if_u8``, ``dropout``,
-``softmax_cross_entropy``, ``accuracy``). Public
+``softmax_cross_entropy``, ``accuracy``, ``batch_norm``), plus ``conv``,
+the bare SAME convolution of ``models/resnet.py``'s ``_conv``. Public
 functions keep the reference's layouts: NHWC activations and HWIO conv
 kernels. ``conv2d`` hands cuDNN an NCHW view of the NHWC tensor (the
 channels-last memory format, so no copy) and an OIHW view of the kernel.
@@ -27,12 +28,11 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv2d(x, w, b=None, strides: int = 1, *, compute_dtype=None):
-    """SAME-padded conv + bias + ReLU on NHWC ``x`` and HWIO ``w``.
-
-    The dtype chain follows the reference: with ``compute_dtype`` the conv
-    runs in it, the result is cast back to ``x``'s dtype, then the bias is
-    added and ReLU applied."""
+def conv(x, w, strides: int = 1, *, compute_dtype=None):
+    """SAME-padded convolution of NHWC ``x`` with HWIO ``w``, no bias and
+    no activation. SAME pads as XLA does: at stride 2 a 3x3 kernel over
+    an even size pads (0, 1), not (1, 1). With ``compute_dtype`` the conv
+    runs in it and the result is cast back to ``x``'s dtype."""
     in_dtype = x.dtype
     if compute_dtype is not None:
         x = x.to(compute_dtype)
@@ -45,8 +45,16 @@ def conv2d(x, w, b=None, strides: int = 1, *, compute_dtype=None):
         xn = F.pad(xn, (left, right, top, bottom))
     y = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=strides)
     y = y.permute(0, 2, 3, 1)
-    if compute_dtype is not None:
-        y = y.to(in_dtype)
+    return y.to(in_dtype) if compute_dtype is not None else y
+
+
+def conv2d(x, w, b=None, strides: int = 1, *, compute_dtype=None):
+    """SAME-padded conv + bias + ReLU on NHWC ``x`` and HWIO ``w``.
+
+    The dtype chain follows the reference: with ``compute_dtype`` the conv
+    runs in it, the result is cast back to ``x``'s dtype, then the bias is
+    added and ReLU applied."""
+    y = conv(x, w, strides, compute_dtype=compute_dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return torch.relu(y)
@@ -124,3 +132,34 @@ def accuracy(logits, labels):
     true = labels.long() if labels.dim() == logits.dim() - 1 \
         else labels.argmax(-1)
     return (pred == true).float().mean()
+
+
+def batch_norm(x, scale, bias, running_mean, running_var, *,
+               train: bool, momentum: float = 0.9, eps: float = 1e-5):
+    """Batch normalization over NHWC ``x``, statistics over N, H and W.
+
+    Returns (y, (new_running_mean, new_running_var)). Train mode
+    normalizes by the batch mean and the biased variance (``jnp.var``)
+    and moves the running stats as ``momentum * running + (1 - momentum)
+    * batch``; the new stats carry no gradient. Eval mode normalizes by
+    the running stats and returns them unchanged. Written out rather than
+    ``F.batch_norm``, whose running variance is the unbiased one and
+    whose momentum is ``1 - momentum``. The dtype chain is the JAX
+    package's: a bfloat16 ``x`` has bfloat16 batch stats (reduced in
+    float32), and ``* scale`` promotes to ``scale``'s dtype."""
+    if train:
+        dims = tuple(range(x.dim() - 1))
+        # jnp.mean and jnp.var reduce a half type in float32 and round
+        # the result back
+        xf = x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+        mean = xf.mean(dims)
+        var = (xf - mean).square().mean(dims)
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        with torch.no_grad():
+            new_mean = momentum * running_mean + (1.0 - momentum) * mean
+            new_var = momentum * running_var + (1.0 - momentum) * var
+    else:
+        mean, var = running_mean, running_var
+        new_mean, new_var = running_mean, running_var
+    y = (x - mean) * torch.rsqrt(var + eps) * scale + bias
+    return y, (new_mean, new_var)

@@ -8,13 +8,17 @@ to ``SyncReplicasOptimizer``. The JAX package runs it as one
 the mesh's data axis. Here each rank is its own process on its own
 device (``parallel/mesh.py``); a step is forward and backward on the
 rank's slice of the global batch, then ONE ``all_reduce`` of the
-gradients and the metrics, packed into a flat float32 buffer and divided
-by the world size (``pmean``), then the clip and the update, the same on
-every rank. The replicas stay bitwise equal: every rank receives the
-same reduced bytes and applies the same arithmetic to them.
+gradients, the metrics and a stateful model's batch-norm running stats,
+packed into a flat float32 buffer (float64 for a float64 model) and
+divided by the world size
+(``pmean``), then the clip and the update, the same on every rank. The
+replicas stay bitwise equal: every rank receives the same reduced bytes
+and applies the same arithmetic to them.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -22,7 +26,9 @@ import torch.distributed as dist
 
 from distributed_tensorflow_tpu_torch.training.train_state import (
     TrainState,
+    apply_augment,
     apply_gradients,
+    augment_seed,
     compute_grads,
     dropout_seed,
     loss_and_metrics,
@@ -44,9 +50,12 @@ def local_batch_size(global_batch_size: int, mesh) -> int:
 
 def pmean(tensors: list, mesh) -> list:
     """The mean of each tensor over the mesh's ranks (``lax.pmean``): one
-    ``all_reduce`` of a flat float32 buffer, then a division by the world
-    size. Returns float32 views of the buffer, in the tensors' shapes."""
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    ``all_reduce`` of a flat buffer in float32 (float64 when a tensor is
+    float64), then a division by the world size. Returns views of the
+    buffer, in the tensors' shapes."""
+    dtype = functools.reduce(torch.promote_types,
+                             (t.dtype for t in tensors), torch.float32)
+    flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
     dist.all_reduce(flat, group=mesh.group)
     flat.div_(mesh.world_size)
     out, at = [], 0
@@ -56,31 +65,44 @@ def pmean(tensors: list, mesh) -> list:
     return out
 
 
-def pmean_grads_and_metrics(grads, metrics: dict, mesh):
-    """(grads, metrics) averaged over the ranks in one collective."""
+def pmean_grads_and_metrics(grads, metrics: dict, mesh, model_state=()):
+    """(grads, metrics) averaged over the ranks in one collective, with
+    ``model_state`` (a stateful model's running stats, each rank's own
+    EMA) averaged in the same collective and written back in place."""
     leaves = tree_leaves(grads)
     names = sorted(metrics)
-    reduced = pmean(leaves + [metrics[k] for k in names], mesh)
+    stats = tree_leaves(model_state)
+    reduced = pmean(leaves + [metrics[k] for k in names] + stats, mesh)
+    n = len(leaves) + len(names)
+    with torch.no_grad():
+        for t, r in zip(stats, reduced[n:]):
+            t.copy_(r)
     return (tree_unflatten(grads, reduced[:len(leaves)]),
-            dict(zip(names, reduced[len(leaves):])))
+            dict(zip(names, reduced[len(leaves):n])))
 
 
 def make_dp_train_step(model, optimizer, mesh, keep_prob: float = 1.0,
-                       grad_transform=None, accum_steps: int = 1):
+                       grad_transform=None, accum_steps: int = 1,
+                       augment_fn=None):
     """The sync-DP train step: (state, local batch) -> (state, metrics).
 
-    Forward and backward on this rank's slice with a dropout seed that
-    mixes in the rank (the JAX package's ``fold_in(axis_index)``), the
-    gradients and metrics averaged over the ranks, ``grad_transform``
-    (the clip) on the averaged gradients, the same update everywhere."""
+    Forward and backward on this rank's slice with dropout and
+    augmentation seeds that mix in the rank (the JAX package's
+    ``fold_in(axis_index)``), the gradients, metrics and running stats
+    averaged over the ranks, ``grad_transform`` (the clip) on the
+    averaged gradients, the same update everywhere."""
 
     def step_fn(state: TrainState, batch):
+        if augment_fn is not None:
+            batch = apply_augment(augment_fn, batch, augment_seed(
+                state.rng, state.step, mesh.rank))
         seed = (dropout_seed(state.rng, state.step, mesh.rank)
                 if keep_prob < 1 else None)
         grads, metrics, model_state = compute_grads(
             model, state.params, batch, keep_prob=keep_prob, rng=seed,
             model_state=state.model_state, accum_steps=accum_steps)
-        grads, metrics = pmean_grads_and_metrics(grads, metrics, mesh)
+        grads, metrics = pmean_grads_and_metrics(grads, metrics, mesh,
+                                                 model_state)
         opt_state = apply_gradients(optimizer, state, grads, grad_transform)
         return (TrainState(state.params, opt_state, state.step + 1,
                            state.rng, model_state), metrics)

@@ -61,6 +61,11 @@ class InferenceEngine:
 
     def __init__(self, model: torch.nn.Module, logdir: str, *,
                  device="cuda", max_batch: int = 8):
+        if getattr(model, "stateful", False):
+            raise NotImplementedError(
+                f"serving a stateful model ({type(model).__name__}: "
+                f"batch-norm running stats) is not yet ported to "
+                f"distributed_tensorflow_tpu_torch")
         self.model = model
         self.logdir = logdir
         self.device = resolve_device(device)

@@ -9,26 +9,30 @@ Here one step is:
 
     draw ``batch`` indices uniformly over the split, gather the uint8
     images and int32 labels into the batch (the model normalizes them),
-    forward, backward, (one ``all_reduce`` over the data-parallel ranks),
-    clip, the optimizer's in-place update, ``step += 1``.
+    (augment the uint8 images), forward, backward (a stateful model
+    moves its batch-norm stats in place), (one ``all_reduce`` over the
+    data-parallel ranks of the gradients, metrics and stats), clip, the
+    optimizer's in-place update, ``step += 1``.
 
 On a CUDA device the step is captured once into a ``torch.cuda.CUDAGraph``
 after two warm-up runs on a side stream (cuDNN's and cuBLAS's handles,
 the kernel library's first load and its shared-memory attribute, NCCL's
 communicator), whose effect on the state is then undone. Every later
-step is one replay: the host reseeds two generators and launches the
-graph, and nothing else. A chunk of ``length`` steps is ``length``
+step is one replay: the host reseeds the step's generators and launches
+the graph, and nothing else. A chunk of ``length`` steps is ``length``
 replays with no readback. A capture that fails raises; nothing falls
 back to eager steps. On the CPU the same body runs eagerly (the test
 path), and ``graph=False`` runs it eagerly on a card, for comparison.
 
 The draws are a function of (key, step, rank): before each step the
 dropout generator is seeded with ``dropout_seed(key, step, rank)``, the
-host-fed step's seed, and the sampling generator with that seed mixed
-with a salt. Both generators are registered with the graph, which copies
-their seeds to the device at each replay, so a replay draws what an
-eager step with the same seeds draws, and a resumed run draws what an
-uninterrupted one would.
+host-fed step's seed, the augmentation generator with
+``augment_seed(key, step, rank)``, also the host-fed step's, and the
+sampling generator with the dropout seed mixed with a salt. The
+generators are registered with the graph, which copies their seeds to
+the device at each replay, so a replay draws what an eager step with the
+same seeds draws, and a resumed run draws what an uninterrupted one
+would.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from distributed_tensorflow_tpu_torch.parallel.data_parallel import (
 from distributed_tensorflow_tpu_torch.training.train_state import (
     _mix,
     apply_gradients,
+    augment_seed,
     compute_grads,
     dropout_seed,
 )
@@ -71,11 +76,12 @@ class DeviceTrainStep:
     ranks. The metrics are the last step's training loss and accuracy
     (dropout on), left on the device. ``indices`` (a function of the
     global step returning the batch's indices) replaces the uniform draw
-    in eager steps, so a test can feed known batches."""
+    in eager steps, so a test can feed known batches. ``augment_fn``
+    ((images, generator) -> images) transforms each drawn batch."""
 
     def __init__(self, model, optimizer, data, batch_size: int, *,
                  keep_prob: float = 1.0, grad_transform=None, mesh=None,
-                 graph: bool | None = None, indices=None):
+                 graph: bool | None = None, indices=None, augment_fn=None):
         self.device = data.images.device
         if graph is None:
             graph = self.device.type == "cuda"
@@ -91,10 +97,13 @@ class DeviceTrainStep:
         self.mesh = mesh
         self.graph = graph
         self.indices = indices
+        self.augment_fn = augment_fn
         self.rank = mesh.rank if mesh is not None else 0
         self.sampler = torch.Generator(device=self.device)
         self.dropper = (torch.Generator(device=self.device)
                         if keep_prob < 1 else None)
+        self.augmenter = (torch.Generator(device=self.device)
+                          if augment_fn is not None else None)
         self._graph = None
         self._state = None
         self._metrics = None
@@ -104,6 +113,9 @@ class DeviceTrainStep:
         self.sampler.manual_seed(sample_seed(state.rng, step, self.rank))
         if self.dropper is not None:
             self.dropper.manual_seed(dropout_seed(state.rng, step, self.rank))
+        if self.augmenter is not None:
+            self.augmenter.manual_seed(augment_seed(state.rng, step,
+                                                    self.rank))
 
     def _draw(self) -> torch.Tensor:
         return torch.randint(0, self.data.num_examples, (self.batch_size,),
@@ -120,14 +132,16 @@ class DeviceTrainStep:
             idx = self.indices(step).to(self.device)
         else:
             idx = self._draw()
-        batch = (self.data.images.index_select(0, idx),
-                 self.data.labels.index_select(0, idx))
-        grads, metrics, _ = compute_grads(
+        images = self.data.images.index_select(0, idx)
+        if self.augment_fn is not None:
+            images = self.augment_fn(images, self.augmenter)
+        batch = (images, self.data.labels.index_select(0, idx))
+        grads, metrics, model_state = compute_grads(
             self.model, state.params, batch, keep_prob=self.keep_prob,
             rng=self.dropper, model_state=state.model_state)
         if self.mesh is not None:
             grads, metrics = pmean_grads_and_metrics(grads, metrics,
-                                                     self.mesh)
+                                                     self.mesh, model_state)
         opt_state = apply_gradients(self.optimizer, state, grads,
                                     self.grad_transform)
         if not all(a is b for a, b in zip(tree_leaves(opt_state),
@@ -179,9 +193,9 @@ class DeviceTrainStep:
         del saved
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.sampler)
-        if self.dropper is not None:
-            graph.register_generator_state(self.dropper)
+        for gen in (self.sampler, self.dropper, self.augmenter):
+            if gen is not None:
+                graph.register_generator_state(gen)
         # thread_local: the backward runs on autograd's device thread, and
         # the process group's watchdog queries events on its own thread
         with fused_dense.recording() as recorded, \
@@ -192,17 +206,20 @@ class DeviceTrainStep:
 
 def make_device_train_step(model, optimizer, data, batch_size: int, *,
                            keep_prob: float = 1.0, grad_transform=None,
-                           graph: bool | None = None, indices=None):
+                           graph: bool | None = None, indices=None,
+                           augment_fn=None):
     """Single-device step over ``data``: ``(state, step, length) ->
     (state, metrics)``; advances ``state.step`` by ``length``."""
     return DeviceTrainStep(model, optimizer, data, batch_size,
                            keep_prob=keep_prob, grad_transform=grad_transform,
-                           graph=graph, indices=indices)
+                           graph=graph, indices=indices,
+                           augment_fn=augment_fn)
 
 
 def make_device_dp_train_step(model, optimizer, mesh, data, batch_size: int,
                               *, keep_prob: float = 1.0, grad_transform=None,
-                              graph: bool | None = None, indices=None):
+                              graph: bool | None = None, indices=None,
+                              augment_fn=None):
     """Sync-DP step over ``mesh``: each rank draws ``batch_size //
     world_size`` examples from its copy of the split, and one
     ``all_reduce`` averages the gradients and metrics; the input side
@@ -210,4 +227,5 @@ def make_device_dp_train_step(model, optimizer, mesh, data, batch_size: int,
     return DeviceTrainStep(model, optimizer, data,
                            local_batch_size(batch_size, mesh),
                            keep_prob=keep_prob, grad_transform=grad_transform,
-                           mesh=mesh, graph=graph, indices=indices)
+                           mesh=mesh, graph=graph, indices=indices,
+                           augment_fn=augment_fn)

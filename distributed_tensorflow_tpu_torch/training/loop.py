@@ -44,6 +44,7 @@ from distributed_tensorflow_tpu_torch.data import (
     read_data_sets,
 )
 from distributed_tensorflow_tpu_torch.models import get_model
+from distributed_tensorflow_tpu_torch.ops.augment import make_augment
 from distributed_tensorflow_tpu_torch.parallel import (
     local_batch_size,
     make_dp_eval_step,
@@ -96,22 +97,42 @@ class TrainResult:
     n_chips: int = 1
 
 
+_PORTED_MODELS = ("deep_cnn", "mlp", "resnet", "resnet20", "resnet32")
+
+
 def build_model_for(FLAGS, meta: dict):
     """The model the flags describe, for a dataset with ``meta``'s image
-    size, channels and classes. Only ``deep_cnn`` is ported."""
-    if meta.get("kind") == "lm" or FLAGS.model != "deep_cnn":
+    size, channels and classes: ``deep_cnn`` (``--pallas`` runs its wd1
+    layer through the CUDA kernel), ``mlp`` (``--hidden_units`` wide) or
+    a CIFAR ResNet. The token models are not ported."""
+    if meta.get("kind") == "lm" or FLAGS.model not in _PORTED_MODELS:
         raise NotImplementedError(
             f"--model {FLAGS.model} (dataset kind {meta.get('kind', 'image')})"
-            f" is not yet ported to distributed_tensorflow_tpu_torch; only "
-            f"deep_cnn is")
+            f" is not yet ported to distributed_tensorflow_tpu_torch; "
+            f"{', '.join(_PORTED_MODELS)} are")
+    kwargs = {}
+    if FLAGS.model == "deep_cnn":
+        kwargs["use_pallas"] = bool(FLAGS.pallas)
+    if FLAGS.model == "mlp":
+        kwargs["hidden_units"] = FLAGS.hidden_units
     return get_model(
-        "deep_cnn",
+        FLAGS.model,
         image_size=meta["image_size"],
         channels=meta["channels"],
         num_classes=meta["num_classes"],
         compute_dtype=torch.bfloat16 if FLAGS.bf16 else None,
-        use_pallas=bool(FLAGS.pallas),
+        **kwargs,
     )
+
+
+def augment_for(FLAGS, meta: dict):
+    """``--augment``'s transform for the dataset, or None: crop after
+    ``--augment_pad`` of zero padding, and a horizontal flip only for
+    3-channel natural images (a mirrored digit is another glyph)."""
+    if not FLAGS.augment:
+        return None
+    return make_augment(meta, pad=FLAGS.augment_pad,
+                        flip=meta["channels"] == 3)
 
 
 def _full_f32_on(device: torch.device) -> torch.device:
@@ -245,17 +266,20 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
     state = create_train_state(model, opt, seed=FLAGS.seed, device=device)
     clip = clip_by_global_norm(FLAGS.clip_norm) if FLAGS.clip_norm > 0 \
         else None
+    augment = augment_for(FLAGS, ds.meta)
     accum = max(1, FLAGS.accum_steps)
     if mesh is not None:
         feed_batch = local_batch_size(FLAGS.batch_size, mesh)
         step_fn = make_dp_train_step(model, opt, mesh,
                                      keep_prob=FLAGS.keep_prob,
-                                     grad_transform=clip, accum_steps=accum)
+                                     grad_transform=clip, accum_steps=accum,
+                                     augment_fn=augment)
         eval_fn = make_dp_eval_step(model, mesh)
     else:
         feed_batch = FLAGS.batch_size
         step_fn = make_train_step(model, opt, keep_prob=FLAGS.keep_prob,
-                                  grad_transform=clip, accum_steps=accum)
+                                  grad_transform=clip, accum_steps=accum,
+                                  augment_fn=augment)
         eval_fn = make_eval_step(model)
     if feed_batch % accum:
         raise ValueError(f"each process's batch of {feed_batch} (of "
@@ -266,7 +290,8 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
             raise ValueError("--accum_steps splits host-fed batches; a "
                              "--device_data step draws one batch")
         return _train_device_resident(FLAGS, device, ds, model, opt, state,
-                                      mesh, eval_fn, feed_batch, clip)
+                                      mesh, eval_fn, feed_batch, clip,
+                                      augment)
 
     run = _Session(FLAGS, model, ds, mesh)
     with run.sv.managed(state) as box:
@@ -299,7 +324,8 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
 
 
 def _train_device_resident(FLAGS, device, ds, model, opt, state, mesh,
-                           eval_fn, feed_batch: int, clip) -> TrainResult:
+                           eval_fn, feed_batch: int, clip,
+                           augment) -> TrainResult:
     """--device_data training: the train split on the device, each step
     drawing its batch there, ``length`` steps per host iteration (one
     CUDA graph replay each on a card). Per training step no batch crosses
@@ -314,7 +340,7 @@ def _train_device_resident(FLAGS, device, ds, model, opt, state, mesh,
               f"boundaries")
     step_fn = DeviceTrainStep(model, opt, data, feed_batch,
                               keep_prob=FLAGS.keep_prob, grad_transform=clip,
-                              mesh=mesh)
+                              mesh=mesh, augment_fn=augment)
     run = _Session(FLAGS, model, ds, mesh)
 
     def iterate(state, step: int):
@@ -497,6 +523,11 @@ def evaluate_only(FLAGS) -> dict[str, float]:
     ds = read_data_sets(FLAGS.data_dir, one_hot=True, dataset=FLAGS.dataset,
                         seed=FLAGS.seed)
     model = build_model_for(FLAGS, ds.meta).to(device)
+    if getattr(model, "stateful", False):
+        raise NotImplementedError(
+            f"--eval_only of a stateful model (--model {FLAGS.model}: "
+            f"batch-norm running stats) is not yet ported to "
+            f"distributed_tensorflow_tpu_torch")
     params = params_of(model)
     blob, step, _ = restore_with_fallback(FLAGS.logdir, {"params": params,
                                                          "step": 0})

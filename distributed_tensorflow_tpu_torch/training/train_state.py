@@ -14,9 +14,15 @@ slots in place too, so one step can be captured in a CUDA graph and
 replayed (``training/device_step.py``): a replay reads and writes the
 same tensors.
 
+A stateful model (the ResNet) keeps its batch-norm running stats in
+buffers that a train-mode forward moves in place; ``model_state`` is the
+tree of those same tensors (``state_of``), as ``params`` is the tree of
+the parameters.
+
 ``TrainState`` flattens to the JAX package's checkpoint keys
-(``params/...``, ``opt_state/...``, ``step``, ``rng``), so a checkpoint of
-either package restores in the other.
+(``params/...``, ``opt_state/...``, ``step``, ``rng``,
+``model_state/...``), so a checkpoint of either package restores in the
+other.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from distributed_tensorflow_tpu_torch.ops import nn
 from distributed_tensorflow_tpu_torch.utils.pytree import (
+    tree_from_named,
     tree_leaves,
     tree_map,
     tree_unflatten,
@@ -38,13 +45,13 @@ _U64 = 0xFFFFFFFFFFFFFFFF
 
 class TrainState(NamedTuple):
     """params + optimizer slots + shared global step + dropout key +
-    non-gradient model state (``()`` for the deep CNN)."""
+    non-gradient model state (``()`` for a stateless model)."""
 
     params: Any  # the model's nn.Parameters, nested as the JAX tree
     opt_state: Any
     step: torch.Tensor  # int32 scalar on the CPU: the reference's global_step
     rng: np.ndarray  # uint32[2], the JAX package's raw PRNG key layout
-    model_state: Any = ()
+    model_state: Any = ()  # the model's buffers, nested as the JAX tree
 
 
 class Optimizer(NamedTuple):
@@ -60,14 +67,16 @@ def params_of(model: torch.nn.Module) -> dict:
     """The module's parameters as the JAX parameter tree: ``weights.wd1``
     becomes ``{"weights": {"wd1": ...}}``. The leaves are the module's own
     tensors."""
-    tree: dict = {}
-    for name, p in model.named_parameters():
-        *parents, leaf = name.split(".")
-        node = tree
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[leaf] = p
-    return tree
+    return tree_from_named(model.named_parameters())
+
+
+def state_of(model: torch.nn.Module):
+    """A stateful module's buffers as the JAX ``state`` tree
+    (``stem.bn.mean`` becomes ``{"stem": {"bn": {"mean": ...}}}``), the
+    leaves the module's own tensors; ``()`` for a stateless model."""
+    if not getattr(model, "stateful", False):
+        return ()
+    return tree_from_named(model.named_buffers())
 
 
 def _lr_at(learning_rate, step):
@@ -254,8 +263,22 @@ def create_train_state(model, optimizer: Optimizer, seed: int = 0,
         opt_state=optimizer.init(params),
         step=torch.zeros((), dtype=torch.int32),
         rng=np.array([seed >> 32 & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32),
-        model_state=(),
+        model_state=state_of(model),
     )
+
+
+def _check_model_state(model, model_state) -> None:
+    """A stateful module reads and moves its own buffers: a
+    ``model_state`` made of other tensors would be ignored, so it is
+    refused."""
+    if not getattr(model, "stateful", False):
+        return
+    mine = tree_leaves(state_of(model))
+    given = tree_leaves(model_state)
+    if len(given) != len(mine) or any(a is not b
+                                      for a, b in zip(given, mine)):
+        raise ValueError("a stateful model's model_state must be its own "
+                         "buffers (train_state.state_of(model))")
 
 
 def loss_and_metrics(model, batch, *, keep_prob=1.0, rng=None,
@@ -263,7 +286,10 @@ def loss_and_metrics(model, batch, *, keep_prob=1.0, rng=None,
     """(loss, {"metrics": {"loss", "accuracy"}, "model_state": ...}) for
     one batch through ``model``'s current parameters. ``rng`` is a
     dropout seed (``dropout_seed``), a ``torch.Generator`` seeded with
-    one, or None for no dropout."""
+    one, or None for no dropout. A stateful model normalizes by the batch
+    in train mode, moving ``model_state`` (its buffers) in place, and by
+    ``model_state`` in eval mode; the returned state is the same tree."""
+    _check_model_state(model, model_state)
     x, y = batch
     generator = rng
     if rng is not None and not isinstance(rng, torch.Generator):
@@ -279,10 +305,12 @@ def compute_grads(model, params, batch, *, keep_prob, rng, model_state,
                   accum_steps: int = 1):
     """(grads, metrics, new_model_state) for one optimizer update: the
     gradients with respect to ``params``, the module's own parameters.
+    A stateful model's ``model_state`` moves in place and comes back.
 
     ``accum_steps > 1`` splits the batch into that many equal
     microbatches, one backward pass each, and averages gradients and
-    metrics; each microbatch draws its own dropout seed."""
+    metrics; each microbatch draws its own dropout seed, and the state
+    threads through the microbatches in order."""
     leaves = tree_leaves(params)
 
     def one(b, seed):
@@ -314,16 +342,41 @@ def compute_grads(model, params, batch, *, keep_prob, rng, model_state,
     return tree_unflatten(params, grads), metrics, model_state
 
 
+_AUG_SALT = 0xA06  # parts the augmentation stream from the others
+
+
+def augment_seed(rng: np.ndarray, step, rank: int = 0) -> int:
+    """The augmentation seed of one train step: the dropout seed of
+    (key, step, rank) mixed with a salt, so ``--augment`` perturbs no
+    other stream. A function of (key, step, rank) alone, so a resumed run
+    augments as an uninterrupted one does."""
+    return _mix(dropout_seed(rng, step, rank), _AUG_SALT)
+
+
+def apply_augment(augment_fn, batch, seed: int):
+    """``batch`` with its images through ``augment_fn(images,
+    generator)``, the generator seeded with ``seed`` on the images'
+    device."""
+    x, y = batch
+    generator = torch.Generator(device=x.device).manual_seed(seed)
+    return augment_fn(x, generator), y
+
+
 def make_train_step(model, optimizer: Optimizer, keep_prob: float = 1.0,
                     grad_transform: Callable[[Any], Any] | None = None,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, augment_fn: Callable | None = None):
     """The train step: (state, batch) -> (state, metrics).
 
     ``grad_transform`` rewrites the gradients before the update (e.g.
-    ``clip_by_global_norm``). The metrics stay on the device until the
-    caller reads them."""
+    ``clip_by_global_norm``). ``augment_fn`` ((images, generator) ->
+    images, ``ops.augment.make_augment``) transforms the batch's images
+    before the forward pass, drawing from ``augment_seed``. The metrics
+    stay on the device until the caller reads them."""
 
     def step_fn(state: TrainState, batch):
+        if augment_fn is not None:
+            batch = apply_augment(augment_fn, batch,
+                                  augment_seed(state.rng, state.step))
         seed = dropout_seed(state.rng, state.step) if keep_prob < 1 else None
         grads, metrics, model_state = compute_grads(
             model, state.params, batch, keep_prob=keep_prob, rng=seed,

@@ -12,7 +12,10 @@ because npz cannot hold bfloat16.
 
 ``params_from_jax`` and ``params_to_numpy`` carry a JAX parameter tree
 (``{"weights": {...}, "biases": {...}}`` of numpy arrays) into a torch
-``state_dict`` and back.
+``state_dict`` and back. A stateful model's JAX variables
+(``{"params": {...}, "state": {...}}``, the ResNet's batch-norm stats in
+``state``) become its parameters plus its buffers; ``state_to_numpy``
+brings the buffers back.
 """
 
 from __future__ import annotations
@@ -141,23 +144,47 @@ def unflatten_pytree(template, flat: dict[str, np.ndarray]):
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
     """A JAX parameter tree of numpy arrays -> a torch ``state_dict``
     ("weights.wd1", ...) on the CPU, ready for ``load_state_dict``.
-    Layouts are kept as they are (HWIO conv kernels, [in, out] dense)."""
+    Layouts are kept as they are (HWIO conv kernels, [in, out] dense). A
+    stateful model's ``{"params", "state"}`` variables fill both its
+    parameters and its buffers: the two trees share their paths'
+    prefixes ("stem.bn.scale" beside "stem.bn.mean")."""
+    if isinstance(tree, Mapping) and set(tree) == {"params", "state"}:
+        return {**params_from_jax(tree["params"]),
+                **params_from_jax(tree["state"])}
     return {".".join(str(p) for p in path): torch.from_numpy(
                 np.array(_to_numpy(leaf)))
             for path, leaf in _leaves_with_path(tree)}
 
 
-def params_to_numpy(params) -> dict:
-    """A torch module (or its ``state_dict``) -> the JAX parameter tree of
-    numpy arrays. A bfloat16 tensor comes back as float32 (exact)."""
-    sd = params.state_dict() if isinstance(params, torch.nn.Module) \
-        else params
+def tree_from_named(named, fn=lambda t: t) -> dict:
+    """(dotted name, tensor) pairs, such as ``named_parameters()`` ->
+    the nested tree ("weights.wd1" -> ``{"weights": {"wd1": ...}}``) of
+    ``fn`` of each tensor."""
     tree: dict = {}
-    for name, t in sd.items():
+    for name, t in named:
         *parents, leaf = name.split(".")
         node = tree
         for p in parents:
             node = node.setdefault(p, {})
-        node[leaf] = _to_numpy(t.float() if t.dtype == torch.bfloat16
-                               else t)
+        node[leaf] = fn(t)
     return tree
+
+
+def _numpy_f32(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bfloat16 comes back as float32 (exact)."""
+    return _to_numpy(t.float() if t.dtype == torch.bfloat16 else t)
+
+
+def params_to_numpy(params) -> dict:
+    """A torch module's parameters (or a ``state_dict`` of parameters) ->
+    the JAX parameter tree of numpy arrays. A module's buffers (the
+    ResNet's running stats) stay out: ``state_to_numpy`` reads them."""
+    named = (params.named_parameters()
+             if isinstance(params, torch.nn.Module) else params.items())
+    return tree_from_named(named, _numpy_f32)
+
+
+def state_to_numpy(model: torch.nn.Module) -> dict:
+    """A module's buffers -> the JAX ``state`` tree of numpy arrays
+    (``{}`` for a model without state)."""
+    return tree_from_named(model.named_buffers(), _numpy_f32)

@@ -237,3 +237,63 @@ def test_managed_saves_on_exit_and_on_sigterm(tmp_path):
             box.update(box.state, 3)
             raise RuntimeError("boom")
     assert tckpt.latest_checkpoint(str(tmp_path / "err"))[1] == 3
+
+
+def _trained_port_resnet_state():
+    """A port ResNet-20 adam TrainState after one update on CIFAR-shaped
+    inputs: parameters, slots and batch-norm stats all moved."""
+    from distributed_tensorflow_tpu_torch.models import ResNet
+    from distributed_tensorflow_tpu_torch.training import train_state as tts
+
+    model = ResNet()
+    opt = tts.adam(1e-3)
+    state = tts.create_train_state(model, opt, seed=5)
+    x = torch.from_numpy(np.random.default_rng(5).random(
+        (4, 32, 32, 3), dtype=np.float32))
+    state, _ = tts.make_train_step(model, opt)(state, (x, torch.arange(4)))
+    return state
+
+
+def test_resnet_train_state_crosses_bitwise_both_ways(tmp_path):
+    """The port's ResNet TrainState (``model_state/...`` keys beside the
+    params and slots) restores bitwise in the JAX package's
+    ``restore_with_fallback``, and JAX's in the port's supervisor, into
+    the module's own buffers; the two key sets are equal."""
+    from distributed_tensorflow_tpu.models.resnet import ResNet as JaxResNet
+    from distributed_tensorflow_tpu.training import adam as jadam
+    from distributed_tensorflow_tpu.training import make_train_step
+    from distributed_tensorflow_tpu.utils.pytree import flatten_pytree as jflat
+    from distributed_tensorflow_tpu_torch.models import ResNet
+    from distributed_tensorflow_tpu_torch.training import train_state as tts
+    from distributed_tensorflow_tpu_torch.training.supervisor import Supervisor
+    from distributed_tensorflow_tpu_torch.utils.pytree import flatten_pytree
+
+    state = _trained_port_resnet_state()
+    tckpt.save_checkpoint(str(tmp_path / "port"), state, 1)
+    template = create_train_state(JaxResNet(), jadam(1e-3), seed=0)
+    got, step, _ = jckpt.restore_with_fallback(str(tmp_path / "port"),
+                                               template)
+    want, have = flatten_pytree(state), jflat(got)
+    assert step == 1 and sorted(have) == sorted(want)
+    assert "model_state/stage1/block0/proj_bn/var" in want
+    for k in want:
+        assert have[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(have[k], want[k])
+
+    jm = JaxResNet()
+    jstate = create_train_state(jm, jadam(1e-3), seed=6)
+    x = np.random.default_rng(6).random((4, 32, 32, 3), dtype=np.float32)
+    jstate, _ = make_train_step(jm, jadam(1e-3), donate=False)(
+        jstate, (x, np.array([1, 2, 3, 4], np.int32)))
+    jckpt.save_checkpoint(str(tmp_path / "jax"), jstate, 1)
+    model = ResNet()
+    live = tts.create_train_state(model, tts.adam(1e-3), seed=0)
+    restored, step = Supervisor(True, str(tmp_path / "jax")).init_or_restore(
+        live)
+    assert step == 1
+    assert restored.model_state["stem"]["bn"]["mean"] is model.stem.bn.mean
+    want, have = jflat(jstate), flatten_pytree(restored)
+    assert sorted(have) == sorted(want)
+    for k in want:
+        assert have[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(have[k], want[k])

@@ -37,13 +37,16 @@ def _native_or_skip():
                     f"which the port does not copy")
 
 
+@pytest.mark.parametrize("dataset", ["mnist", "cifar10"])
 @pytest.mark.parametrize("validation_size", [0, 100])
 def test_synthetic_splits_are_byte_identical(tmp_path, small_splits,
-                                             validation_size):
+                                             validation_size, dataset):
     j = jdata.read_data_sets(str(tmp_path / "none"), seed=3,
-                             validation_size=validation_size)
+                             validation_size=validation_size,
+                             dataset=dataset)
     t = tdata.read_data_sets(str(tmp_path / "none"), seed=3,
-                             validation_size=validation_size)
+                             validation_size=validation_size,
+                             dataset=dataset)
     assert t.source == j.source == "synthetic" and t.meta == j.meta
     names = ["train", "test"] + (["validation"] if validation_size else [])
     for name in names:
@@ -100,7 +103,60 @@ def test_labels_out_of_range_are_refused():
 
 def test_other_datasets_are_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdata.read_data_sets(str(tmp_path), dataset="cifar10")
+        tdata.read_data_sets(str(tmp_path), dataset="lm")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        tdata.read_data_sets(str(tmp_path), dataset="imagenet")
+
+
+def test_synthetic_cifar_is_byte_identical():
+    from distributed_tensorflow_tpu.data import synthetic as jsyn
+    from distributed_tensorflow_tpu_torch.data import synthetic as tsyn
+
+    for n, seed in ((5, 0), (64, 7)):
+        (jx, jy), (tx, ty) = (jsyn.synthetic_cifar(n, seed=seed),
+                              tsyn.synthetic_cifar(n, seed=seed))
+        assert tx.shape == (n, 32, 32, 3) and tx.dtype == np.float32
+        assert tx.tobytes() == jx.tobytes() and ty.tobytes() == jy.tobytes()
+
+
+def _write_cifar_pickles(root, n_train=12, n_test=6):
+    """The CIFAR-10 python-version batches (``data_batch_1..5``,
+    ``test_batch``: dicts of uint8 rows in CHW order and a label list)."""
+    import os
+    import pickle
+
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d)
+    rng = np.random.default_rng(8)
+    names = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
+    for name in names:
+        n = n_test if name == "test_batch" else n_train
+        blob = {b"data": rng.integers(0, 256, (n, 3072)).astype(np.uint8),
+                b"labels": [int(v) for v in rng.integers(0, 10, n)]}
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump(blob, f)
+
+
+def test_cifar10_pickles_read_as_jax_reads_them(tmp_path, small_splits):
+    _write_cifar_pickles(str(tmp_path))
+    want = jdata._load_cifar10(str(tmp_path))
+    got = tdata._load_cifar10(str(tmp_path))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    j = jdata.read_data_sets(str(tmp_path), dataset="cifar10", seed=1)
+    t = tdata.read_data_sets(str(tmp_path), dataset="cifar10", seed=1)
+    assert t.source == j.source == "cifar" and t.meta == j.meta
+    assert t.meta == {"image_size": 32, "channels": 3, "num_classes": 10,
+                      "flat": False}
+    assert t.train.num_examples == 60 and t.test.num_examples == 6
+    for name in ("train", "test"):
+        a, b = getattr(j, name), getattr(t, name)
+        assert a.images.tobytes() == b.images.tobytes()
+        # the thin wire quantizes the float source to uint8 once
+        assert b._raw_u8().shape == (b.num_examples, 3072)
+        assert a._raw_u8().tobytes() == b._raw_u8().tobytes()
+    assert tdata.read_data_sets(str(tmp_path / "missing"),
+                                dataset="cifar10").source == "synthetic"
 
 
 def _write_idx(path, arr, gz=False):

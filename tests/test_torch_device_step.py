@@ -25,9 +25,11 @@ from distributed_tensorflow_tpu_torch.data import (
     DataSet,
     datasets as tdata,
     put_device_data,
+    synthetic_cifar,
     synthetic_digits,
 )
-from distributed_tensorflow_tpu_torch.models import DeepCNN
+from distributed_tensorflow_tpu_torch.models import DeepCNN, ResNet
+from distributed_tensorflow_tpu_torch.ops.augment import make_augment
 from distributed_tensorflow_tpu_torch.training import train_state as tts
 from distributed_tensorflow_tpu_torch.training.device_step import (
     DeviceTrainStep,
@@ -35,6 +37,7 @@ from distributed_tensorflow_tpu_torch.training.device_step import (
 )
 from distributed_tensorflow_tpu_torch.utils.pytree import (
     params_to_numpy,
+    state_to_numpy,
     tree_leaves,
 )
 from tests.test_torch_parallel import free_port, write_mnist_idx
@@ -91,6 +94,68 @@ def test_device_step_on_injected_indices_equals_host_step(keep_prob):
     for a, b in zip(tree_leaves(params_to_numpy(model)),
                     tree_leaves(host_params)):
         np.testing.assert_array_equal(a, b)
+
+
+def _cifar_split(n=N_EXAMPLES, seed=3):
+    x, y = synthetic_cifar(n, seed=seed)
+    return DataSet(x, y)
+
+
+CIFAR_AUGMENT = make_augment({"image_size": 32, "channels": 3})
+
+
+def test_resnet_device_step_with_augment_equals_host_step():
+    """ResNet-20 with --augment: the device step on injected indices and
+    the host-fed step on the same uint8 batches draw the same crops and
+    flips from (key, step) and move the batch-norm stats alike, bit for
+    bit."""
+    split = _cifar_split()
+    idx = _index_stream(steps=3)
+    raw, ids = split._raw_u8(), split.labels_int.astype(np.int32)
+    runs = []
+    for device in (False, True):
+        model, opt = ResNet(), tts.adam(1e-3)
+        state = tts.create_train_state(model, opt, seed=0)
+        losses = []
+        if device:
+            step_fn = make_device_train_step(
+                model, opt, put_device_data(split, "cpu"), BATCH,
+                indices=lambda s: torch.from_numpy(idx[s]),
+                augment_fn=CIFAR_AUGMENT)
+            for s in range(3):
+                state, m = step_fn(state, s, 1)
+                losses.append(float(m["loss"]))
+        else:
+            step_fn = tts.make_train_step(model, opt,
+                                          augment_fn=CIFAR_AUGMENT)
+            for i in idx:
+                state, m = step_fn(state, (torch.from_numpy(raw[i]),
+                                           torch.from_numpy(ids[i])))
+                losses.append(float(m["loss"]))
+        runs.append((losses, params_to_numpy(model), state_to_numpy(model)))
+    (lh, ph, sh), (ld, pd, sd) = runs
+    assert ld == lh
+    for a, b in zip(tree_leaves(pd) + tree_leaves(sd),
+                    tree_leaves(ph) + tree_leaves(sh)):
+        np.testing.assert_array_equal(a, b)
+    assert float(np.abs(sd["stem"]["bn"]["mean"]).max()) > 0
+
+
+def test_augment_draws_repeat_for_one_key_step_and_rank():
+    def draws(rank, step):
+        model, opt = ResNet(), tts.sgd(0.0)
+        state = tts.create_train_state(model, opt, seed=0)
+        mesh = types.SimpleNamespace(rank=rank, world_size=4)
+        step_fn = DeviceTrainStep(model, opt,
+                                  put_device_data(_cifar_split(), "cpu"),
+                                  BATCH, mesh=mesh, augment_fn=CIFAR_AUGMENT)
+        step_fn.sample(state, step)  # seeds every stream of the step
+        return torch.randint(0, 2 ** 31, (8,), generator=step_fn.augmenter)
+
+    first = draws(0, 5)
+    assert torch.equal(first, draws(0, 5))
+    assert not torch.equal(first, draws(1, 5))
+    assert not torch.equal(first, draws(0, 6))
 
 
 def test_device_step_matches_jax_on_the_same_uint8_batches():
@@ -186,7 +251,7 @@ def port_flags():
     tflags.FLAGS._reset()
 
 
-def _device_train(port_flags, logdir, data_dir, steps, capsys):
+def _device_train(port_flags, logdir, data_dir, steps, capsys, *extra):
     from distributed_tensorflow_tpu_torch.training.loop import train
 
     port_flags._reset()
@@ -194,7 +259,8 @@ def _device_train(port_flags, logdir, data_dir, steps, capsys):
         "--device=cpu", f"--logdir={logdir}", f"--data_dir={data_dir}",
         f"--training_iter={steps}", "--batch_size=16", "--display_step=10",
         "--device_chunk=5", "--optimizer=adam", "--keep_prob=0.75",
-        "--save_model_secs=100000", "--test_eval=false", "--device_data"])
+        "--save_model_secs=100000", "--test_eval=false", "--device_data",
+        *extra])
     res = train(port_flags)
     return res, capsys.readouterr().out
 
@@ -222,6 +288,30 @@ def test_device_data_resumes_off_a_chunk_boundary(tmp_path, small_splits,
     want = tckpt.load_flat(os.path.join(whole, "ckpt-20.npz"))
     got = tckpt.load_flat(os.path.join(parts, "ckpt-20.npz"))
     assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_resnet_device_data_with_augment_resumes_bitwise(
+        tmp_path, small_splits, port_flags, capsys):
+    """ResNet-20 on CIFAR-10 with --augment: a run stopped at step 7 and
+    resumed to 12 ends where an uninterrupted run ends, bit for bit, the
+    batch-norm state included: the crops and flips, like the batches,
+    are a function of (key, step), and the restore brings the running
+    stats back into the module's buffers."""
+    args = ("--model=resnet20", "--dataset=cifar10", "--augment")
+    data_dir = str(tmp_path / "no-data")
+    whole, parts = str(tmp_path / "whole"), str(tmp_path / "parts")
+    res, _ = _device_train(port_flags, whole, data_dir, 12, capsys, *args)
+    assert res.final_step == 12
+    res, _ = _device_train(port_flags, parts, data_dir, 7, capsys, *args)
+    assert res.final_step == 7
+    res, out = _device_train(port_flags, parts, data_dir, 12, capsys, *args)
+    assert res.final_step == 12 and "restored checkpoint step=7" in out
+    want = tckpt.load_flat(os.path.join(whole, "ckpt-12.npz"))
+    got = tckpt.load_flat(os.path.join(parts, "ckpt-12.npz"))
+    assert sorted(got) == sorted(want)
+    assert "model_state/stage2/block0/proj_bn/var" in want
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
@@ -290,4 +380,38 @@ def test_graph_replays_equal_eager_device_steps_on_card(cuda_device, bf16):
     (lg, pg, sg), (le, pe, se) = runs
     assert lg == le and sg == se == STEPS
     for a, b in zip(tree_leaves(pg), tree_leaves(pe)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_resnet_graph_replays_equal_eager_steps_on_card(cuda_device, bf16):
+    """ResNet-20 with --augment: the captured graph holds the crop, the
+    flip and the batch-norm updates; its replays equal eager device steps
+    bit for bit (cuDNN's deterministic algorithms), the stats included."""
+    data = put_device_data(_cifar_split(), cuda_device)
+    runs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for graph in (True, False):
+            model = ResNet(compute_dtype=torch.bfloat16 if bf16 else None)
+            opt = tts.adam(1e-3)
+            state = tts.create_train_state(model, opt, seed=0,
+                                           device=cuda_device)
+            state = state._replace(step=state.step.to(cuda_device))
+            step_fn = make_device_train_step(model, opt, data, BATCH,
+                                             graph=graph,
+                                             augment_fn=CIFAR_AUGMENT)
+            losses = []
+            for s in range(STEPS):
+                state, m = step_fn(state, s, 1)
+                losses.append(float(m["loss"]))
+            runs.append((losses, params_to_numpy(model),
+                         state_to_numpy(model)))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lg, pg, sg), (le, pe, se) = runs
+    assert lg == le
+    for a, b in zip(tree_leaves(pg) + tree_leaves(sg),
+                    tree_leaves(pe) + tree_leaves(se)):
         np.testing.assert_array_equal(a, b)

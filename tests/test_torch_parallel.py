@@ -222,6 +222,124 @@ def test_dp_trajectory_matches_jax_and_the_single_process_step(world,
     _assert_adam_close(params, sparams)
 
 
+def _cifar_global_batches():
+    from distributed_tensorflow_tpu_torch.data import synthetic_cifar
+
+    x, y = synthetic_cifar(STEPS * GLOBAL_BATCH, seed=5)
+    x = x.astype(np.float64)
+    yo = np.eye(10)[y]
+    return [(x[i * GLOBAL_BATCH:(i + 1) * GLOBAL_BATCH],
+             yo[i * GLOBAL_BATCH:(i + 1) * GLOBAL_BATCH])
+            for i in range(STEPS)]
+
+
+def _dp_resnet_rank(rank, world, port, init_path, out_dir):
+    """One rank of the fed float64 ResNet-20 DP trajectory, from the JAX
+    init in ``init_path`` (rank 0) or a fresh one (the others)."""
+    import torch.distributed as dist
+
+    from distributed_tensorflow_tpu_torch.models import ResNet
+    from distributed_tensorflow_tpu_torch.parallel import (
+        make_dp_train_step,
+        make_mesh,
+        replicate_state,
+    )
+    from distributed_tensorflow_tpu_torch.training import train_state as tts
+    from distributed_tensorflow_tpu_torch.utils.pytree import (
+        flatten_pytree,
+    )
+
+    _join_group(rank, world, port)
+    mesh = make_mesh("cpu")
+    model = ResNet().double()
+    opt = tts.adam(LR)
+    state = tts.create_train_state(model, opt, seed=rank)
+    if rank == 0:
+        init = np.load(init_path)
+        model.load_state_dict({k: torch.from_numpy(init[k]) for k in init})
+    state = replicate_state(mesh, state)
+    step_fn = make_dp_train_step(model, opt, mesh, keep_prob=1.0)
+    local = GLOBAL_BATCH // world
+    losses = []
+    for x, y in _cifar_global_batches():
+        sl = slice(rank * local, (rank + 1) * local)
+        state, m = step_fn(state, (torch.from_numpy(x[sl]),
+                                   torch.from_numpy(y[sl])))
+        losses.append(float(m["loss"]))
+    np.savez(os.path.join(out_dir, f"resnet{rank}.npz"),
+             losses=np.asarray(losses), **flatten_pytree(state))
+    dist.destroy_process_group()
+
+
+def test_resnet20_dp_matches_jax_and_the_replicas_stay_bitwise_equal(
+        tmp_path):
+    """Two gloo ranks of ResNet-20 (adam, global batch 16) against JAX's
+    ``make_dp_train_step`` on two virtual CPU devices, from one JAX init:
+    the gradients, the metrics and the batch-norm running stats averaged
+    over the ranks in one collective. Both run in float64, at rtol 1e-4:
+    in float32 batch norm at 8 examples a rank makes the early stages'
+    gradients a small difference of large terms (the reasoning of
+    ``tests/test_torch_resnet.py``). The two replicas, state and
+    optimizer slots included, must be bitwise equal."""
+    import jax
+    import jax.numpy as jnp
+
+    from distributed_tensorflow_tpu.models.resnet import ResNet as JaxResNet
+    from distributed_tensorflow_tpu.parallel import data_parallel as jdp
+    from distributed_tensorflow_tpu.parallel.mesh import MeshSpec, make_mesh
+    from distributed_tensorflow_tpu.training import train_state as jts
+    from distributed_tensorflow_tpu_torch.utils.pytree import params_from_jax
+
+    world = 2
+    with jax.enable_x64(True):
+        f64 = lambda t: jax.tree.map(  # noqa: E731
+            lambda a: jnp.asarray(a, jnp.float64), t)
+        jm, jopt = JaxResNet(), jts.adam(LR)
+        js = jts.create_train_state(jm, jopt, seed=0)
+        js = js._replace(params=f64(js.params),
+                         model_state=f64(js.model_state))
+        js = js._replace(opt_state=jopt.init(js.params))
+        init = {k: v.numpy() for k, v in params_from_jax(jax.tree.map(
+            np.asarray, {"params": js.params,
+                         "state": js.model_state})).items()}
+        mesh = make_mesh(MeshSpec(data=world), devices=jax.devices()[:world])
+        state = jdp.replicate_state(mesh, js)
+        step = jdp.make_dp_train_step(jm, jopt, mesh, keep_prob=1.0,
+                                      donate=False)
+        want = []
+        for b in _cifar_global_batches():
+            state, m = step(state, jdp.shard_batch(
+                mesh, tuple(map(jnp.asarray, b))))
+            want.append(float(m["loss"]))
+        jflat = {**{f"params/{k}": v for k, v in _flat(state.params)},
+                 **{f"model_state/{k}": v
+                    for k, v in _flat(state.model_state)}}
+    init_path = str(tmp_path / "init.npz")
+    np.savez(init_path, **init)
+    _spawn(_dp_resnet_rank, world, free_port(), init_path, str(tmp_path))
+
+    ranks = [dict(np.load(tmp_path / f"resnet{r}.npz"))
+             for r in range(world)]
+    assert sorted(ranks[1]) == sorted(ranks[0])
+    for k in ranks[0]:
+        np.testing.assert_array_equal(ranks[1][k], ranks[0][k], err_msg=k)
+    assert any(k.startswith("model_state/stage2/block2/bn2/")
+               for k in ranks[0])
+    np.testing.assert_allclose(ranks[0]["losses"], want, rtol=1e-4)
+    for k, v in jflat.items():
+        assert ranks[0][k].dtype == np.float64
+        np.testing.assert_allclose(ranks[0][k], v, rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+
+
+def _flat(tree):
+    import jax
+
+    return [("/".join(str(getattr(p, "key", p)) for p in path),
+             np.asarray(leaf))
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
 def _loop_rank(rank, world, port, data_dir, logdir, device_data, stop_at,
                out_dir):
     """One rank of ``train(FLAGS, mode="sync")``; rank 1's supervisor asks

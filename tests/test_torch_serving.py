@@ -170,3 +170,13 @@ def test_flag_validators_reject_at_parse(fresh_flags):
     fresh_flags._reset()
     fresh_flags._parse([])
     assert fresh_flags.device == "cuda" and fresh_flags.serve_max_batch == 8
+
+
+def test_serving_a_stateful_model_is_not_yet_ported(tmp_path):
+    from distributed_tensorflow_tpu_torch.models import ResNet
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine,
+    )
+
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        InferenceEngine(ResNet(), str(tmp_path), device="cpu")

@@ -15,6 +15,7 @@ from distributed_tensorflow_tpu import native
 from distributed_tensorflow_tpu.checkpoint import checkpoint as jckpt
 from distributed_tensorflow_tpu.data import datasets as jdata
 from distributed_tensorflow_tpu.models.cnn import DeepCNN as JaxDeepCNN
+from distributed_tensorflow_tpu.models.resnet import ResNet20 as JaxResNet20
 from distributed_tensorflow_tpu.training import adam as jadam
 from distributed_tensorflow_tpu.training import create_train_state
 from distributed_tensorflow_tpu.training.loop import train as jtrain
@@ -149,6 +150,99 @@ def _train_both_and_compare(tmp_path, port_flags, capsys):
             np.testing.assert_array_equal(got[k], want[k])
 
 
+def test_resnet20_train_matches_jax_from_one_checkpoint(
+        tmp_path, small_splits, port_flags, capsys, monkeypatch):
+    """``--model resnet20 --dataset cifar10`` through both ``train``
+    loops from one JAX step-0 checkpoint (6 adam steps, batch 16, no
+    augmentation: the two packages draw crops from different generators).
+    Display losses at rtol 1e-4; the test eval (which normalizes by the
+    running stats) and the saved batch-norm state as stated below. The parameters are not compared entry by entry in
+    float32: batch norm at batch 16 makes the early stages' gradients a
+    small difference of large terms, and adam turns a sign flip there
+    into a learning rate (``tests/test_torch_resnet.py`` holds the same
+    trajectory in float64)."""
+    _numpy_shuffle(monkeypatch)
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    init = create_train_state(JaxResNet20(), jadam(1e-3), seed=0)
+    for d in (jdir, tdir):
+        jckpt.save_checkpoint(d, init, 0)
+    args = ("--model=resnet20", "--dataset=cifar10")
+    jflags.define_reference_flags()
+    jflags.FLAGS._reset()
+    try:
+        jflags.FLAGS._parse(_argv(jdir, tmp_path, *args, "--mfu=false",
+                                  "--async_checkpoint=false"))
+        jres = jtrain(jflags.FLAGS, mode="local")
+    finally:
+        jflags.FLAGS._reset()
+    port_flags._parse(_argv(tdir, tmp_path, *args, "--device=cpu"))
+    tres = ttrain(port_flags)
+    assert "job: worker/0 step:  0 mini_batch loss: " in capsys.readouterr().out
+    jl, tl = _display_losses(jdir), _display_losses(tdir)
+    assert sorted(tl) == sorted(jl) == [0, 2, 4]
+    for step in jl:
+        np.testing.assert_allclose(tl[step], jl[step], rtol=1e-4)
+    # the test eval reads the parameters those steps left, apart by up to
+    # a learning rate in a few entries: its loss at rtol 1e-3, and at
+    # most one of the 300 test predictions differs
+    np.testing.assert_allclose(tres.test_metrics["loss"],
+                               jres.test_metrics["loss"], rtol=1e-3)
+    assert abs(tres.test_metrics["accuracy"]
+               - jres.test_metrics["accuracy"]) <= 1 / 300 + 1e-6
+    want = jckpt.load_flat(os.path.join(jdir, f"ckpt-{STEPS}.npz"))
+    got = tckpt.load_flat(os.path.join(tdir, f"ckpt-{STEPS}.npz"))
+    assert sorted(got) == sorted(want)
+    stats = [k for k in want if k.startswith("model_state/")]
+    assert len(stats) == 2 * 21
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+    for k in stats:
+        # moments of activations of those parameters: 1e-2 of the scale
+        np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                   atol=1e-2 * np.abs(want[k]).max(),
+                                   err_msg=k)
+    np.testing.assert_array_equal(got["step"], want["step"])
+
+
+def test_build_model_for_builds_the_ported_models(port_flags):
+    from distributed_tensorflow_tpu_torch.models import MLP, ResNet
+    from distributed_tensorflow_tpu_torch.training.loop import (
+        augment_for,
+        build_model_for,
+    )
+
+    cifar = {"image_size": 32, "channels": 3, "num_classes": 10}
+    port_flags._parse(["--model=mlp", "--hidden_units=33"])
+    m = build_model_for(port_flags, cifar)
+    assert isinstance(m, MLP) and m.weights["h1"].shape == (3072, 33)
+    assert augment_for(port_flags, cifar) is None
+    for name, n in (("resnet20", 3), ("resnet32", 5), ("resnet", 3)):
+        port_flags._reset()
+        port_flags._parse([f"--model={name}", "--bf16", "--augment"])
+        m = build_model_for(port_flags, cifar)
+        assert isinstance(m, ResNet) and m.n == n
+        assert m.compute_dtype is not None and m.stateful
+        assert augment_for(port_flags, cifar) is not None
+    for bad in (["--model=resnet20", "--pallas"],
+                ["--dataset=lm", "--augment"], ["--augment_pad=-1"]):
+        port_flags._reset()
+        with pytest.raises(ValueError):
+            port_flags._parse(bad)
+
+
+def test_models_that_are_not_ported_raise(port_flags):
+    from distributed_tensorflow_tpu_torch.training.loop import build_model_for
+
+    cifar = {"image_size": 32, "channels": 3, "num_classes": 10}
+    port_flags._parse(["--model=transformer"])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        build_model_for(port_flags, cifar)
+    port_flags._reset()
+    port_flags._parse([])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        build_model_for(port_flags, {"kind": "lm"})
+
+
 def test_final_save_after_a_failed_eval_holds_one_step(
         tmp_path, small_splits, port_flags, monkeypatch):
     """A periodic eval that raises after step 3 ends the run; the final
@@ -263,3 +357,25 @@ def test_entry_point_rejects_flags_of_paths_not_ported(tmp_path):
                        "--logdir", str(tmp_path / "logs")])
     assert proc.returncode == 2
     assert "unknown flag" in proc.stderr and "--zero=1" in proc.stderr
+
+
+def test_entry_point_trains_resnet20_on_cifar10_with_augment(tmp_path):
+    """The slice's command line, on CIFAR-10 pickles written small."""
+    from tests.test_torch_data import _write_cifar_pickles
+
+    _write_cifar_pickles(str(tmp_path / "cifar"), n_train=16, n_test=20)
+    proc = _run_entry(["--model", "resnet20", "--dataset", "cifar10",
+                       "--augment", "--device", "cpu", "--training_iter",
+                       "3", "--batch_size", "16", "--display_step", "2",
+                       "--logdir", str(tmp_path / "logs"), "--data_dir",
+                       str(tmp_path / "cifar")])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = proc.stdout.splitlines()
+    assert any(line.startswith("job: worker/0 step:  2 mini_batch loss:  ")
+               for line in lines)
+    assert "Optimization Finished!" in lines
+    assert any(line.startswith("test accuracy:  ") for line in lines)
+    saved = tckpt.load_flat(os.path.join(str(tmp_path / "logs"),
+                                         "ckpt-3.npz"))
+    assert "model_state/stem/bn/mean" in saved
+    assert np.abs(saved["model_state/stem/bn/mean"]).max() > 0
