@@ -41,7 +41,7 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    around a CUDA graph of many launches over rotating buffers larger than
    L2, beside the least time the card could take;
 7. the ``kernels`` JSON line, the card line, and ``{"ok": true, ...}`` last,
-   after phase 8;
+   after phase 10;
 8. device-resident sync DP: a one-rank NCCL group on
    ``tcp://127.0.0.1:<free port>``, then ``train(FLAGS, mode="sync")`` with
    ``--device_data --pallas`` in f32 and in bf16 (each step one CUDA graph
@@ -68,7 +68,25 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    the host-fed path at batch 128, in turns, with each one's busy share,
    kernels per step, idle between kernels and top kernels by device time
    from ``torch.profiler``. The slice adds no kernel: ``fused_dense_relu``
-   must not launch here.
+   must not launch here;
+10. the asynchronous ps topology (BASELINE config 5) through the
+   reference's command line: ``ps/0`` and ``worker/1`` as ``python -m
+   distributed_tensorflow_tpu_torch.mnist_dist`` subprocesses on
+   127.0.0.1 ports, ``worker/0`` in this process through the same
+   ``mnist_dist.main`` (deep_cnn ``--pallas``, adam 1e-3, batch 128, in
+   f32 and with ``--bf16 --ps_wire bf16``): two workers must reach test
+   accuracy 0.98 within 600 global steps with the mirror cycle, while
+   the ps holds no CUDA context (not in ``nvidia-smi``'s compute apps,
+   no ``/dev/nvidia<N>`` open); worker/0's kernel launches must equal
+   its cycles, display evals and test-eval batches, all "tma"; the
+   final checkpoint, beside the background writer's cadenced ones, must
+   evaluate through ``--eval_only`` to the printed accuracy and pass
+   ``checkpoint.inspect --verify``; one worker's 20 mirror cycles must
+   land the ps within 1e-5 of each leaf's scale of 20 full-pull cycles
+   (keep_prob 1, cuDNN deterministic); then global steps/s, images/s
+   over both workers and worker/0's per-cycle split (pull, upload,
+   grad, download, push) with the mirror on and off on either wire, in
+   turns, and the device's busy share over 20 of worker/0's cycles.
 
 Any failed phase raises, so the script exits non-zero. f32 runs in full
 f32: TF32 is turned off for cuDNN and cuBLAS.
@@ -95,8 +113,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from distributed_tensorflow_tpu_torch import flags
+from distributed_tensorflow_tpu_torch import flags, mnist_dist
 from distributed_tensorflow_tpu_torch.checkpoint import (
+    inspect as ckpt_inspect,
+    latest_checkpoint,
+    load_flat,
     restore_with_fallback,
     save_checkpoint,
 )
@@ -117,7 +138,7 @@ from distributed_tensorflow_tpu_torch.ops.fused_dense import (
     fused_dense_relu,
     fused_dense_relu_reference,
 )
-from distributed_tensorflow_tpu_torch.parallel import make_mesh
+from distributed_tensorflow_tpu_torch.parallel import PSClient, make_mesh
 from distributed_tensorflow_tpu_torch.serving.__main__ import (
     build_serving_stack,
 )
@@ -127,7 +148,10 @@ from distributed_tensorflow_tpu_torch.training.device_step import (
     WARMUP_STEPS,
     make_device_dp_train_step,
 )
-from distributed_tensorflow_tpu_torch.training.loop import train
+from distributed_tensorflow_tpu_torch.training.loop import (
+    evaluate_only,
+    train,
+)
 from distributed_tensorflow_tpu_torch.utils.pytree import (
     flatten_pytree,
     params_to_numpy,
@@ -204,6 +228,19 @@ RESNET_TIME_STEPS = {"device": 150, "host": 40}
 # the profiled windows: 10 steps, on the device path one chunk of 10
 RESNET_PROFILE_STEPS = 10
 CIFAR_META = {"image_size": 32, "channels": 3}
+
+# phase 10: the ps topology (BASELINE config 5). Two workers share a
+# budget of PS_STEPS global steps and must reach ACCURACY_MIN; one worker
+# runs PS_TRAJ_STEPS cycles with the mirror and as many with the full pull
+# (keep_prob 1), whose final ps params must agree within PS_TRAJ_TOL of
+# each leaf's scale; the timing runs take PS_TIME_STEPS global steps, the
+# first turn of each configuration with a profiled window of
+# PS_PROFILE_CYCLES of worker/0's cycles
+PS_STEPS, PS_TRAJ_STEPS, PS_TIME_STEPS, PS_PROFILE_CYCLES = 600, 20, 150, 20
+PS_TRAJ_TOL = 1e-5
+PS_WIRE_ARGS = {"f32": (), "bf16": ("--bf16", "--ps_wire", "bf16")}
+PS_READY_S = 300  # a role that has not reported ready by then is stuck
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 N_REQUESTS, N_THREADS = 64, 8
 KERNEL_SRC = "distributed_tensorflow_tpu_torch/ops/csrc/fused_dense_relu.cu"
@@ -336,19 +373,36 @@ def phase_build() -> None:
                              "and load by TMA (UTMALDG) in both dtypes")
 
 
-def kernels_in_one_call(x, w, b) -> list[str]:
+def kernels_in_one_call(x, w, b, windows: int = 3) -> list[str]:
     """The device kernels that one wrapper call enqueues, by name
-    (``torch.profiler``; the output's ``torch.empty`` launches none)."""
+    (``torch.profiler``; the output's ``torch.empty`` launches none).
+    Spin kernels (``torch.cuda._sleep``, about 10 us each) open the
+    window: the tracer can drop the first kernels of a window (seen on an
+    H100), so a trace without any spin is taken again, at most
+    ``windows`` times, and in one with a spin every kernel after the last
+    spin is the call's."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fused_dense_relu(x, w, b)
+    for _ in range(windows):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "memcpy" not in e.name.lower()
-            and "memset" not in e.name.lower()]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(20000)
+            fused_dense_relu(x, w, b)
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "memcpy" not in e.name.lower()
+             and "memset" not in e.name.lower()),
+            key=lambda e: e.time_range.start)]
+        spins = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        if spins:
+            return names[spins[-1] + 1:]
+        say("kernel", f"profiler window without its spin kernels "
+                      f"({names}); taking it again")
+    raise AssertionError(f"the profiler recorded no spin kernel in "
+                         f"{windows} windows")
 
 
 def phase_kernel_vs_plain() -> dict:
@@ -1127,6 +1181,286 @@ def phase_resnet_times(card: str, work: str, data_dir: str,
     return rates
 
 
+def _wait_for(proc, path: str, text: str, timeout: float) -> None:
+    """Until ``text`` appears in the output file of ``proc``; raises if the
+    process exits first or the time runs out."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with open(path) as f:
+            out = f.read()
+        if text in out:
+            return
+        if proc.poll() is not None:
+            raise AssertionError(f"{path}: exited {proc.returncode} before "
+                                 f"{text!r}:\n{out[-3000:]}")
+        time.sleep(0.2)
+    raise AssertionError(f"{path}: no {text!r} within {timeout} s")
+
+
+def cuda_pids() -> set[int]:
+    """The pids that hold a CUDA context, by ``nvidia-smi``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return {int(w) for w in out.split() if w.strip().isdigit()}
+
+
+def nvidia_device_fds(pid: int) -> list[str]:
+    """The GPU device nodes (``/dev/nvidia<N>``) that process ``pid`` has
+    open: a process with a CUDA context holds its card's."""
+    found = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if re.fullmatch(r"/dev/nvidia\d+", target):
+            found.add(target)
+    return sorted(found)
+
+
+SUMMARY = "ps worker summary: "
+
+
+def _summary(text: str) -> dict:
+    lines = [ln for ln in text.splitlines() if ln.startswith(SUMMARY)]
+    if len(lines) != 1:
+        raise AssertionError(f"expected one {SUMMARY!r} line, got {lines}")
+    return json.loads(lines[0][len(SUMMARY):])
+
+
+def ps_run(work: str, data_dir: str, name: str, wire: str, workers: int,
+           steps: int, *extra: str, worker0: tuple[str, ...] = ()) -> dict:
+    """One run of the ps topology through the reference's command line:
+    ps/0 and workers 1.. as ``python -m ...mnist_dist`` subprocesses on
+    127.0.0.1 ports, worker/0 in this process through the same
+    ``mnist_dist.main`` once the others report ready, its kernel launches
+    counted; ``worker0`` holds flags for worker/0 alone. Checks, while
+    the ps still serves, that it holds no CUDA context; then shuts it
+    down."""
+    logdir = os.path.join(work, name)
+    ps_addr = f"127.0.0.1:{free_port()}"
+    hosts = ",".join(f"127.0.0.1:{free_port()}" for _ in range(workers))
+    common = ["--ps_hosts", ps_addr, "--worker_hosts", hosts, "--device",
+              "cuda", "--logdir", logdir, "--data_dir", data_dir,
+              "--optimizer", "adam", "--learning_rate", "0.001",
+              "--batch_size", "128", "--pallas", "--training_iter",
+              str(steps), *PS_WIRE_ARGS[wire], *extra]
+    procs = []
+
+    def launch(job: str, i: int):
+        out = os.path.join(work, f"{name}-{job}{i}.out")
+        with open(out, "w") as f:
+            p = subprocess.Popen(
+                [sys.executable, "-m",
+                 "distributed_tensorflow_tpu_torch.mnist_dist",
+                 f"--job_name={job}", f"--task_index={i}", *common],
+                cwd=REPO, stdout=f, stderr=subprocess.STDOUT)
+        procs.append(p)
+        return p, out
+
+    t0 = time.perf_counter()
+    try:
+        # the workers start with the ps: a worker's client retries its
+        # connection until the ps serves
+        ps, ps_out = launch("ps", 0)
+        others = [launch("worker", i) for i in range(1, workers)]
+        _wait_for(ps, ps_out, "ps/0 serving at", PS_READY_S)
+        for p, out in others:
+            _wait_for(p, out, "waiting for the chief's initialization",
+                      PS_READY_S)
+        flags.define_reference_flags()
+        flags.FLAGS._reset()
+        flags.FLAGS._parse(["--job_name=worker", "--task_index=0", *common,
+                            *worker0])
+        buf = io.StringIO()
+        fused_dense.LAUNCHES = 0  # the main path's run starts here
+        fused_dense.LAUNCHES_BY_VARIANT.update(tma=0, simt=0)
+        with contextlib.redirect_stdout(buf):
+            rc = mnist_dist.main([])
+        launches = fused_dense.LAUNCHES  # ... and ends here
+        by_variant = dict(fused_dense.LAUNCHES_BY_VARIANT)
+        if rc != 0:
+            raise AssertionError(f"{name}: worker/0 returned {rc}")
+        ps_cuda = {"nvidia_smi": ps.pid in cuda_pids(),
+                   "device_fds": nvidia_device_fds(ps.pid),
+                   "worker0_visible": os.getpid() in cuda_pids(),
+                   "worker0_fds": nvidia_device_fds(os.getpid())}
+        texts = [buf.getvalue()]
+        for p, out in others:
+            p.wait(timeout=PS_READY_S)
+            with open(out) as f:
+                texts.append(f.read())
+            if p.returncode != 0:
+                raise AssertionError(f"{out}: exit {p.returncode}\n"
+                                     f"{texts[-1][-3000:]}")
+        stop = PSClient([ps_addr])
+        stop.shutdown_all()
+        stop.close()
+        ps.wait(timeout=60)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    wall = time.perf_counter() - t0
+    if ps.returncode != 0:
+        raise AssertionError(f"{name}: ps/0 exit {ps.returncode}")
+    if ps_cuda["nvidia_smi"] or ps_cuda["device_fds"]:
+        raise AssertionError(f"{name}: the ps process holds a CUDA context "
+                             f"({ps_cuda})")
+    acc = re.search(r"^test accuracy:  (\S+) test loss:  (\S+)$",
+                    texts[0], re.M)
+    return {"logdir": logdir, "texts": texts, "wall_s": wall,
+            "summaries": [_summary(t) for t in texts],
+            "launches": launches, "by_variant": by_variant,
+            "ps_cuda": ps_cuda,
+            "test": (float(acc.group(1)), float(acc.group(2))) if acc
+            else None}
+
+
+def phase_ps(tag: str, work: str, data_dir: str) -> dict:
+    """Phase 10: two workers to test accuracy within PS_STEPS global steps
+    (the mirror cycle, cadenced background checkpoints), worker/0's
+    kernel launches against its forward passes, the ps without a CUDA
+    context, and the final checkpoint through --eval_only and the
+    inspect CLI."""
+    run = ps_run(work, data_dir, f"{tag}-ps-main", tag, 2, PS_STEPS,
+                 "--save_model_secs", "2")
+    s0, s1 = run["summaries"]
+    for line in run["texts"][0].splitlines():
+        if line.startswith(("job: ", "test accuracy")):
+            say("ps", f"{tag}: {line}")
+    acc, loss = run["test"]
+    test_batches = math.ceil(datasets.SYNTHETIC_TEST / EVAL_BATCH)
+    want = s0["cycles"] + s0["displays"] + test_batches
+    final = latest_checkpoint(run["logdir"])
+    say("ps", f"{tag}: 2 workers, {PS_STEPS} global steps, --ps_wire "
+              f"{'bf16' if tag == 'bf16' else 'f32'}: test accuracy "
+              f"{acc:.4f} (need >= {ACCURACY_MIN}); worker/0 {s0['cycles']} "
+              f"cycles, worker/1 {s1['cycles']}; worker/0's kernel launches "
+              f"{run['launches']} {run['by_variant']} for {want} forward "
+              f"passes ({s0['cycles']} cycles, {s0['displays']} display "
+              f"evals, {test_batches} test-eval batches); final step "
+              f"{final[1] if final else None}; the ps and CUDA: "
+              f"{run['ps_cuda']}; {run['wall_s']:.1f} s")
+    if not acc >= ACCURACY_MIN or final is None or final[1] < PS_STEPS:
+        raise AssertionError(f"{tag}: ps run reached test accuracy {acc}, "
+                             f"final checkpoint {final}")
+    if s0["cycles"] + s1["cycles"] < PS_STEPS or not s1["cycles"]:
+        raise AssertionError(f"{tag}: the workers ran {s0['cycles']} and "
+                             f"{s1['cycles']} cycles")
+    if run["launches"] != want or run["by_variant"] != {"tma": want,
+                                                        "simt": 0}:
+        raise AssertionError(f"{tag}: worker/0 launched {run['launches']} "
+                             f"{run['by_variant']} for {want} forward "
+                             f"passes, all to be tma")
+
+    # the final checkpoint restores through --eval_only to what the run
+    # printed; the inspect CLI verifies every set the background writer
+    # and the final save left
+    flags.FLAGS._reset()
+    flags.FLAGS._parse(["--eval_only", "--logdir", run["logdir"],
+                        "--data_dir", data_dir, "--device", "cuda",
+                        "--pallas", *(("--bf16",) if tag == "bf16" else ())])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        m = evaluate_only(flags.FLAGS)
+        verify = ckpt_inspect.main(["--verify", "--logdir", run["logdir"]])
+    for line in buf.getvalue().splitlines():
+        say("ps", f"{tag}: eval_only/inspect | {line}")
+    if verify != 0 or m["accuracy"] != acc or \
+            not math.isclose(m["loss"], loss, rel_tol=1e-5):
+        raise AssertionError(f"{tag}: --eval_only read {m} from the final "
+                             f"checkpoint, the run printed {acc}, {loss}; "
+                             f"inspect --verify exit {verify}")
+    steps_saved = sorted(int(n[5:-4]) for n in os.listdir(run["logdir"])
+                         if re.fullmatch(r"ckpt-\d+\.npz", n))
+    say("ps", f"{tag}: checkpoints in the logdir at steps {steps_saved} "
+              f"(cadenced ones from the background writer, the last the "
+              f"synchronous final save)")
+    return {"launches": run["launches"], "accuracy": acc,
+            "cycles": [s0["cycles"], s1["cycles"]],
+            "ps_cuda": run["ps_cuda"]}
+
+
+def phase_ps_mirror_vs_full(work: str, data_dir: str) -> dict:
+    """One worker, keep_prob 1, the same batches: PS_TRAJ_STEPS cycles with
+    the mirror against as many serial full pulls, each from the seed-0
+    init, with cuDNN's deterministic algorithms; the final ps params."""
+    final = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, extra in (("mirror", ()),
+                            ("full", ("--ps_mirror=false",
+                                      "--ps_prefetch=false"))):
+            run = ps_run(work, data_dir, f"f32-ps-traj-{name}", "f32", 1,
+                         PS_TRAJ_STEPS, "--keep_prob", "1", "--test_eval",
+                         "false", "--display_step", str(10 * PS_TRAJ_STEPS),
+                         "--save_model_secs", "100000", *extra)
+            path, step = latest_checkpoint(run["logdir"])
+            if step != PS_TRAJ_STEPS:
+                raise AssertionError(f"{name}: final step {step}")
+            final[name] = load_flat(path)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst = max(float(np.abs(final["mirror"][k] - final["full"][k]).max()
+                      / max(float(np.abs(final["full"][k]).max()), 1e-30))
+                for k in final["full"] if k.startswith("params/"))
+    bitwise = all(np.array_equal(final["mirror"][k], final["full"][k])
+                  for k in final["full"])
+    say("ps", f"f32: one worker, {PS_TRAJ_STEPS} cycles with --ps_mirror vs "
+              f"--ps_mirror=false, keep_prob 1: final ps params max "
+              f"|diff|/scale {worst:.3e} (tolerance {PS_TRAJ_TOL}); bitwise "
+              f"{'equal' if bitwise else 'different'}")
+    if not worst <= PS_TRAJ_TOL:
+        raise AssertionError("the mirror's trajectory leaves the full "
+                             "pull's")
+    return {"max_rel_diff": worst, "bitwise": bitwise}
+
+
+def phase_ps_times(card: str, work: str, data_dir: str) -> dict:
+    """Global steps/s, images/s over both workers and worker/0's per-cycle
+    split, with the mirror on and off, on the f32 and the bf16 wire, in
+    turns (on, off, off, on); the first turn of each configuration
+    profiles PS_PROFILE_CYCLES of worker/0's cycles (its busy share),
+    which stay out of its timed window; worker/1 is never profiled."""
+    rows = {}
+    for wire in PS_WIRE_ARGS:
+        for i, mirror in enumerate((True, False, False, True)):
+            name = f"{wire}-ps-turn-{i}"
+            extra = () if mirror else ("--ps_mirror=false",)
+            profile = (("--profile_dir", os.path.join(work, name, "trace"),
+                        "--profile_steps", str(PS_PROFILE_CYCLES))
+                       if i < 2 else ())
+            run = ps_run(work, data_dir, name, wire, 2, PS_TIME_STEPS,
+                         "--display_step", str(100 * PS_TIME_STEPS),
+                         "--test_eval", "false", "--save_model_secs",
+                         "100000", *extra, worker0=profile)
+            s0, s1 = run["summaries"]
+            split = {k: s0[f"step_{k}_s"] * 1e3
+                     for k in ("pull", "upload", "grad", "download", "push")}
+            row = {"global_steps_per_sec": s0["global_steps_per_sec"],
+                   "images_per_sec": s0["images_per_sec"]
+                   + s1["images_per_sec"],
+                   "split_ms": split, "busy_share": s0["device_busy_share"],
+                   "cycles": [s0["cycles"], s1["cycles"]]}
+            rows.setdefault((wire, mirror), []).append(row)
+            say("times", f"ps {wire} wire, mirror {'on ' if mirror else 'off'}"
+                         f" run {i}: {row['global_steps_per_sec']:.2f} global "
+                         f"steps/s, {row['images_per_sec']:.1f} images/s over "
+                         f"2 workers ({s0['images_per_sec']:.1f} + "
+                         f"{s1['images_per_sec']:.1f}); worker/0 per cycle: "
+                         + ", ".join(f"{k} {v:.3f} ms"
+                                     for k, v in split.items())
+                         + f" (StepTimer, {s0['timed_cycles']} cycles)"
+                         + ("" if row["busy_share"] is None else
+                            f"; device busy share {row['busy_share']:.4f} "
+                            f"over {PS_PROFILE_CYCLES} cycles "
+                            f"(torch.profiler)") + f" | {card}")
+    return rows
+
+
 def phase_times(card: str, served: dict) -> dict:
     for tag, run in served.items():
         lat = run["latency_ms"]
@@ -1186,13 +1520,17 @@ def main() -> int:
             phase_resnet_times(card, work, data_dir, port)
         finally:
             dist.destroy_process_group()
+        ps = {tag: phase_ps(tag, work, data_dir) for tag in DTYPES}
+        phase_ps_mirror_vs_full(work, data_dir)
+        phase_ps_times(card, work, data_dir)
     times = phase_times(card, served)
     kernels = []
     for tag in DTYPES:
         t = times[(tag, SERVE_SHAPE)]
         by_path = {"serve": served[tag]["launches"],
                    "train": trained[tag]["launches"],
-                   "device_resident": resident[tag]["launches"]}
+                   "device_resident": resident[tag]["launches"],
+                   "ps_worker0": ps[tag]["launches"]}
         kernels.append({
             "name": f"fused_dense_relu[{tag}]", "route": "cuda",
             "variant": "tma", "source": KERNEL_SRC, "replaces": TPU_KERNEL,

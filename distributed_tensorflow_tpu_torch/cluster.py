@@ -4,10 +4,11 @@ The counterpart of ``distributed_tensorflow_tpu/cluster.py``'s
 ``ClusterSpec``, ``resolve_mode`` and ``maybe_initialize_distributed``.
 The reference (``MNISTDist.py:94-107``) splits
 ``--ps_hosts``/``--worker_hosts`` into a two-job cluster and demuxes on
-role. The local and sync modes are ported; ``require_ported`` raises for
-ps mode. In sync mode each worker is one process on one device, and
-joins a ``torch.distributed`` process group whose store is served by
-worker 0 (the role the chief's master service plays in the reference).
+role: ps mode runs ``parallel/ps_emulation.py``'s roles at the addresses
+``task_address`` names. In sync mode each worker is one process on one
+device, and joins a ``torch.distributed`` process group whose store is
+served by worker 0 (the role the chief's master service plays in the
+reference).
 """
 
 from __future__ import annotations
@@ -40,6 +41,14 @@ class ClusterSpec:
     def worker_hosts(self) -> list[str]:
         return self.jobs.get("worker", [])
 
+    def task_address(self, job: str, index: int) -> str:
+        hosts = self.jobs.get(job, [])
+        if not 0 <= index < len(hosts):
+            raise ValueError(
+                f"task_index {index} out of range for job {job!r} with "
+                f"{len(hosts)} hosts")
+        return hosts[index]
+
     def num_tasks(self, job: str) -> int:
         return len(self.jobs.get(job, []))
 
@@ -55,14 +64,6 @@ def resolve_mode(FLAGS) -> str:
     if len([h for h in FLAGS.worker_hosts.split(",") if h]) > 1:
         return "sync"
     return "local"
-
-
-def require_ported(mode: str, cluster: ClusterSpec) -> None:
-    """Raise for the mode the port does not run yet: ps."""
-    if mode == "ps":
-        raise NotImplementedError(
-            "ps mode (the asynchronous parameter-server topology) is not "
-            "yet ported to distributed_tensorflow_tpu_torch")
 
 
 def _initialize_with_retry(init_fn, *, retries: int, backoff_s: float,

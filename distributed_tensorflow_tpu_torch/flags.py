@@ -5,7 +5,7 @@ The counterpart of ``distributed_tensorflow_tpu/flags.py``: the same
 lazily-parsed ``FLAGS`` singleton, ``DEFINE_*`` functions, parse-time
 validators and ``run(main)``. ``define_flags`` holds the flags the predict
 path reads plus the port-only ``--device``; ``define_reference_flags`` adds
-the reference's 10 flags and the flags the local and sync training
+the reference's 10 flags and the flags the local, sync and ps training
 loops read.
 Names, defaults and meanings match the JAX package's, so one command line
 drives either package. Flags of paths not ported yet are not defined, and
@@ -166,7 +166,7 @@ def define_flags():
 
 def define_reference_flags():
     """The reference's 10-flag surface (MNISTDist.py:13-31) and the flags
-    the local and sync training loops read, with the JAX package's names,
+    the local, sync and ps training loops read, with the JAX package's names,
     defaults and validators, plus the predict path's flags
     (``define_flags``). Idempotent."""
     if "job_name" in FLAGS._defs:
@@ -182,13 +182,14 @@ def define_reference_flags():
     DEFINE_integer("training_iter", 10000, "Training iteration")
     DEFINE_float("learning_rate", 0.001, "Learning rate")
     DEFINE_integer("display_step", 100, "display step")
-    # --- the JAX package's extensions that the local and sync loops read
+    # --- the JAX package's extensions that the training loops read
     DEFINE_string("mode", "auto", "Parallel mode: auto|local|sync|ps. auto "
                   "= 'ps' roles when --ps_hosts is set, sync when "
                   "--worker_hosts lists more than one worker, else local. "
-                  "Local and sync are ported: sync runs one process per "
-                  "device (--task_index, --device cuda:<i>) in a "
-                  "torch.distributed group served by --worker_hosts[0]")
+                  "Sync runs one process per device (--task_index, "
+                  "--device cuda:<i>) in a torch.distributed group served "
+                  "by --worker_hosts[0]; ps runs --job_name=ps|worker "
+                  "against the --ps_hosts parameter servers")
     DEFINE_string("optimizer", "sgd", "Optimizer: sgd|momentum|adam "
                   "(reference: sgd)")
     DEFINE_float("weight_decay", 0.0, "Decoupled weight decay: the update "
@@ -261,6 +262,45 @@ def define_reference_flags():
     DEFINE_float("init_timeout_s", 0.0, "Per-attempt cap (seconds) on "
                  "init_process_group's own wait for the store (0 = the "
                  "library default)")
+    DEFINE_boolean("shard_data", False, "Give each worker a disjoint data "
+                   "shard (reference: every worker samples the full "
+                   "dataset); read by the ps mode's workers")
+    DEFINE_string("ps_wire", "f32", "PS-mode transport precision: f32 "
+                  "(exact, reference parity) or bf16 — every pulled param "
+                  "and pushed grad moves at half width over BOTH the TCP "
+                  "wire and the host<->card link (ps-side master params "
+                  "stay f32; the worker widens params and narrows grads "
+                  "on the card)")
+    DEFINE_boolean("ps_prefetch", True, "PS mode, full-pull cycle only "
+                   "(--ps_mirror=false): keep one parameter pull in "
+                   "flight, overlapping the next pull with the card's "
+                   "gradient computation and the push (the pulled "
+                   "snapshot is one own-push staler — async-SGD "
+                   "staleness class). false = serial pull/compute/push "
+                   "reference cycle")
+    DEFINE_boolean("ps_mirror", True, "PS mode: keep a device-resident "
+                   "mirror of the params (and, for momentum/adam, the "
+                   "optimizer slots) and replay each pushed gradient's "
+                   "ps-side update on the card instead of re-pulling and "
+                   "re-uploading the full parameter set every cycle. The "
+                   "mirror resyncs from the ps every --ps_resync_steps and "
+                   "at once when another worker's push is detected (the "
+                   "returned global step skips ahead); =false restores "
+                   "the pull cycle --ps_prefetch controls")
+    DEFINE_integer("ps_resync_steps", 50, "Steps between full parameter "
+                   "resyncs in --ps_mirror mode (bounds any numeric drift "
+                   "between the ps-side and card-side applies)")
+    DEFINE_boolean("sharded_checkpoint", True, "Cross-host-sharded state "
+                   "checkpoints as per-process shard files. Every state "
+                   "this package trains is fetchable by one process, which "
+                   "always writes the monolithic file; the sharded format "
+                   "is read (restore, --eval_only, the inspect CLI)")
+    DEFINE_boolean("async_checkpoint", True, "Write cadenced checkpoints "
+                   "from a background thread (the state is fetched to "
+                   "host on the training thread, then serialized and "
+                   "written off-thread; training never blocks on the "
+                   "disk). The final checkpoint on exit is always "
+                   "synchronous")
     DEFINE_string("profile_dir", "", "If set, trace --profile_steps "
                   "post-warm-up training steps with torch.profiler into "
                   "this dir (a Chrome trace) and report the device's busy "
@@ -328,6 +368,11 @@ def _validate_training_flags(values: dict):
              "must be >= 0 seconds")
     _require(values, "init_timeout_s", lambda v: float(v) >= 0,
              "must be >= 0 seconds (0 = the library default)")
+    _require(values, "ps_resync_steps", lambda v: int(v) >= 1,
+             "must be >= 1 (the mirror resync cadence)")
+    wire = values.get("ps_wire")
+    if wire is not None and wire not in ("f32", "bf16"):
+        raise ValueError(f"--ps_wire={wire!r} must be f32 or bf16")
     mode = values.get("mode")
     if mode not in ("auto", "local", "sync", "ps"):
         raise ValueError(f"--mode={mode!r} must be one of auto, local, "

@@ -1,5 +1,5 @@
-"""Parallelism: the data mesh and synchronous data parallelism on
-``torch.distributed``."""
+"""Parallelism: the data mesh, synchronous data parallelism on
+``torch.distributed``, and the asynchronous parameter-server topology."""
 
 from distributed_tensorflow_tpu_torch.parallel.data_parallel import (  # noqa: F401
     local_batch_size,
@@ -10,4 +10,15 @@ from distributed_tensorflow_tpu_torch.parallel.data_parallel import (  # noqa: F
 from distributed_tensorflow_tpu_torch.parallel.mesh import (  # noqa: F401
     DataMesh,
     make_mesh,
+)
+from distributed_tensorflow_tpu_torch.parallel.ps_emulation import (  # noqa: F401
+    MirrorCycle,
+    PSClient,
+    PSServer,
+    assign_shards,
+    make_grad_fn,
+    ps_comm_rows,
+    ps_unsupported_flag_error,
+    run_parameter_server,
+    run_worker,
 )

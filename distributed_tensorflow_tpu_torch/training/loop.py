@@ -32,6 +32,8 @@ import torch
 import torch.distributed as dist
 
 from distributed_tensorflow_tpu_torch.checkpoint import (
+    background_save_from_flags,
+    checkpoint_keys,
     latest_checkpoint,
     max_to_keep_from_flags,
     restore_with_fallback,
@@ -70,8 +72,10 @@ from distributed_tensorflow_tpu_torch.training.train_state import (
     make_eval_step,
     make_train_step,
     params_of,
+    state_of,
 )
 from distributed_tensorflow_tpu_torch.utils.metrics import MetricsLogger
+from distributed_tensorflow_tpu_torch.utils.pytree import _BF16_TAG
 from distributed_tensorflow_tpu_torch.utils.profiling import (
     Throughput,
     busy_share,
@@ -173,9 +177,10 @@ def train(FLAGS, mode: str = "local") -> TrainResult:
     caller has joined (``cluster.maybe_initialize_distributed``), on its
     own ``--device``. Other modes raise."""
     if mode not in ("local", "sync"):
-        raise NotImplementedError(
-            f"mode {mode!r} is not yet ported to "
-            f"distributed_tensorflow_tpu_torch; local and sync are")
+        raise ValueError(
+            f"train runs mode 'local' or 'sync', not {mode!r}; the ps "
+            f"topology's roles run in parallel.ps_emulation "
+            f"(run_parameter_server, run_worker)")
     return _train_once(FLAGS, mode)
 
 
@@ -202,7 +207,8 @@ class _Session:
         self.sv = Supervisor(is_chief=(FLAGS.task_index == 0),
                              logdir=FLAGS.logdir,
                              save_model_secs=FLAGS.save_model_secs,
-                             max_to_keep=max_to_keep_from_flags(FLAGS))
+                             max_to_keep=max_to_keep_from_flags(FLAGS),
+                             background=background_save_from_flags(FLAGS))
         self.logger = MetricsLogger(FLAGS.logdir if self.sv.is_chief
                                     else None,
                                     job_name=FLAGS.job_name or "worker",
@@ -426,7 +432,8 @@ def _loop(FLAGS, run, device, box, state, step: int, iterate, window: int):
 def _finish(FLAGS, run, model, ds, state, step, last_display,
             images_per_sec, busy) -> TrainResult:
     test_metrics = _final_test_eval(FLAGS, run.sv, run.periodic_eval, model,
-                                    state, ds, run.logger, step)
+                                    state, ds, run.logger, step,
+                                    run.meter.n_chips)
     print("Optimization Finished!")
     run.logger.close()
     return TrainResult(final_step=step, train_metrics=last_display,
@@ -513,8 +520,11 @@ def _stop_profiler(prof, device: torch.device, profile_dir: str):
 
 def evaluate_only(FLAGS) -> dict[str, float]:
     """--eval_only: restore the latest checkpoint's params from
-    ``--logdir`` and evaluate the full test split, no training. Any
-    optimizer layout restores, since only the params are read."""
+    ``--logdir`` and evaluate the full test split, no training. Only
+    what evaluation needs is read: the params, and for a stateful model
+    (the ResNet) its ``model_state``, the batch-norm running stats; any
+    optimizer layout restores. A stateful model's checkpoint without
+    stored stats is refused rather than evaluated with untrained ones."""
     device = _full_f32_on(FLAGS.device)
     found = latest_checkpoint(FLAGS.logdir)
     if found is None:
@@ -523,16 +533,21 @@ def evaluate_only(FLAGS) -> dict[str, float]:
     ds = read_data_sets(FLAGS.data_dir, one_hot=True, dataset=FLAGS.dataset,
                         seed=FLAGS.seed)
     model = build_model_for(FLAGS, ds.meta).to(device)
-    if getattr(model, "stateful", False):
-        raise NotImplementedError(
-            f"--eval_only of a stateful model (--model {FLAGS.model}: "
-            f"batch-norm running stats) is not yet ported to "
-            f"distributed_tensorflow_tpu_torch")
-    params = params_of(model)
-    blob, step, _ = restore_with_fallback(FLAGS.logdir, {"params": params,
-                                                         "step": 0})
-    _adopt(params, blob["params"])
-    m = evaluate(model, ds.test, batch_size=_eval_batch_for(ds.meta))
+    template = {"params": params_of(model), "step": 0}
+    model_state = state_of(model)
+    if model_state != ():
+        if not any(k.removeprefix(_BF16_TAG).startswith("model_state/")
+                   for k in checkpoint_keys(found[0])):
+            raise ValueError(
+                f"--eval_only: checkpoint {found[0]} has no model_state "
+                f"but model {FLAGS.model!r} is stateful (batch-norm) — "
+                f"evaluating with untrained statistics would be silently "
+                f"wrong")
+        template["model_state"] = model_state
+    blob, step, _ = restore_with_fallback(FLAGS.logdir, template)
+    _adopt(template, blob)
+    m = evaluate(model, ds.test, batch_size=_eval_batch_for(ds.meta),
+                 model_state=model_state)
     print(f"step: {step} test accuracy: {m['accuracy']} "
           f"test loss: {m['loss']}")
     print(json.dumps({"step": step, "test_accuracy": m["accuracy"],
@@ -589,10 +604,12 @@ def _periodic_test_eval(FLAGS, sv, model, ds, logger):
 
 
 def _final_test_eval(FLAGS, sv, periodic_eval, model, state, ds, logger,
-                     step):
-    """End-of-run test evaluation; reuses the periodic eval's result when
-    it already covered the final step."""
-    if not FLAGS.test_eval:
+                     step, n_chips: int = 1):
+    """End-of-run test evaluation on the chief; reuses the periodic eval's
+    result when it already covered the final step. In a run of more than
+    one process the others return None: they evaluate, print and log
+    nothing."""
+    if not FLAGS.test_eval or (n_chips > 1 and not sv.is_chief):
         return None
     last = periodic_eval.last_result()
     if last is not None and last[0] == step:

@@ -3,7 +3,8 @@
 The counterpart of ``distributed_tensorflow_tpu/training/supervisor.py``.
 ``tf.train.Supervisor`` (``MNISTDist.py:158-170``) owns chief designation
 (task 0), init-or-restore at session start, periodic chief-only
-checkpointing, a should_stop signal and cleanup; ``managed`` replaces
+checkpointing (on a writer thread with ``--async_checkpoint``), a
+should_stop signal and cleanup; ``managed`` replaces
 ``managed_session``: it yields the (possibly restored) state and writes a
 final checkpoint on the way out, on an error and on SIGTERM or SIGINT too
 (MNISTDist.py:169-191). In sync mode every process runs one: each
@@ -39,12 +40,13 @@ def _adopt(live, restored):
 
 class Supervisor:
     def __init__(self, is_chief: bool, logdir: str,
-                 save_model_secs: int = 600, max_to_keep: int = 5):
+                 save_model_secs: int = 600, max_to_keep: int = 5,
+                 background: bool = False):
         self.is_chief = is_chief
         self.logdir = logdir
         self.checkpointer = Checkpointer(
             logdir, is_chief=is_chief, save_model_secs=save_model_secs,
-            max_to_keep=max_to_keep)
+            max_to_keep=max_to_keep, background=background)
         self._stop = False
         # the checkpoint.RestoreReport of the last init_or_restore (None
         # on a fresh init)
@@ -145,7 +147,9 @@ class Supervisor:
     def managed(self, init_state):
         """Restore-or-init on entry; on exit (normal, error, or a signal
         that requested the stop) the chief writes a final checkpoint of
-        the last state the loop published with ``box.update``."""
+        the last state the loop published with ``box.update``,
+        synchronously, after any background write, and the writer thread
+        stops."""
         box = _StateBox(*self.init_or_restore(init_state))
         restore_signals = self._install_signal_handlers()
         try:
@@ -157,6 +161,7 @@ class Supervisor:
                     self.checkpointer.save(box.state, box.step)
                 except Exception as e:  # noqa: BLE001 — best-effort on exit
                     print(f"final checkpoint failed: {e}")
+            self.checkpointer.close()
             self.request_stop()
 
 

@@ -16,16 +16,19 @@ class StepTimer:
     call returning: on a card this is the host's work of enqueueing the
     step, since the kernels run asynchronously), ``device`` (time blocked
     waiting for the device). ``scalars()`` returns the per-step means
-    since the last call and resets the window.
+    since the last call and resets the window. Another loop names its own
+    kinds in ``keys`` (the ps worker's pull, upload, grad, download and
+    push).
     """
 
     KEYS = ("host_wait", "dispatch", "device")
 
-    def __init__(self):
+    def __init__(self, keys: tuple[str, ...] = KEYS):
+        self.keys = keys
         self.reset()
 
     def reset(self) -> None:
-        self._acc = dict.fromkeys(self.KEYS, 0.0)
+        self._acc = dict.fromkeys(self.keys, 0.0)
         self._steps = 0
 
     def add(self, key: str, dt: float) -> None:
@@ -37,6 +40,6 @@ class StepTimer:
     def scalars(self) -> dict:
         n = max(self._steps, 1)
         out = {f"step_{k}_s": round(self._acc[k] / n, 9)
-               for k in self.KEYS}
+               for k in self.keys}
         self.reset()
         return out

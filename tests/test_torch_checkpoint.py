@@ -98,10 +98,72 @@ def test_gc_keeps_newest_and_template_mismatch_is_loud(tmp_path):
 
 
 def test_sharded_checkpoint_raises_not_yet_ported(tmp_path):
+    """The sharded format is read now: a lone shard of an incomplete set
+    (1 of 2 files) is not restorable, so there is nothing to restore, and
+    a complete monolithic step beside it restores."""
     (tmp_path / "ckpt-5.shard0-of-2.npz").write_bytes(b"")
-    with pytest.raises(tckpt.ShardedCheckpointNotPorted,
-                       match="not yet ported"):
-        tckpt.restore_params_with_fallback(str(tmp_path), _port_params())
+    assert tckpt.latest_checkpoint(str(tmp_path)) is None
+    assert tckpt.restore_params_with_fallback(str(tmp_path),
+                                              _port_params()) is None
+    tckpt.save_checkpoint(str(tmp_path), {"params": _port_params(2)}, 3)
+    params, step, _ = tckpt.restore_params_with_fallback(str(tmp_path),
+                                                         _port_params())
+    assert step == 3
+    np.testing.assert_array_equal(params["weights"]["wd1"],
+                                  _port_params(2)["weights"]["wd1"])
+
+
+def _jax_sharded_state(seed):
+    """A JAX TrainState whose params are sharded over the tests' 8-device
+    CPU mesh (wd1 by rows, wc2 by output channels), the rest replicated,
+    and a bf16 leaf beside them."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from distributed_tensorflow_tpu.training import adam as jadam
+
+    state = create_train_state(JaxDeepCNN(), jadam(1e-3), seed=seed)
+    mesh = Mesh(np.asarray(jax.devices()).reshape(8), ("data",))
+    specs = {"wd1": P("data", None), "wc2": P(None, None, None, "data")}
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, a: jax.device_put(a, NamedSharding(
+            mesh, specs.get(getattr(path[-1], "key", ""), P()))),
+        state.params)
+    return {"params": params, "step": np.int32(seed),
+            "half": jax.numpy.arange(6, dtype=jax.numpy.bfloat16)}
+
+
+def test_jax_sharded_set_reads_bitwise_and_a_damaged_one_is_quarantined(
+        tmp_path):
+    from distributed_tensorflow_tpu.utils.pytree import flatten_pytree as jflat
+
+    d = str(tmp_path)
+    old, new = _jax_sharded_state(1), _jax_sharded_state(2)
+    jckpt.save_checkpoint(d, old, 10)  # an older monolithic step
+    path = jckpt.save_checkpoint_sharded(d, new, 20)
+    assert ".shard0-of-1." in path
+    want = jflat(new, tag_bf16=True)
+    got = tckpt.load_flat(path)
+    assert sorted(got) == sorted(want) == sorted(jckpt.load_flat(path))
+    assert "__bf16__half" in got
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert tckpt.latest_checkpoint(d) == (path, 20)
+    assert tckpt.checkpoint_keys(path) == set(want)
+    params, step, rep = tckpt.restore_params_with_fallback(d, _port_params())
+    assert step == 20 and rep.fallback_depth == 0
+    np.testing.assert_array_equal(params["weights"]["wd1"],
+                                  want["params/weights/wd1"])
+    # a flipped byte in the shard: quarantined, the ladder walks back
+    raw = bytearray(open(path, "rb").read())
+    raw[len(raw) // 3] ^= 0xFF
+    open(path, "wb").write(bytes(raw))
+    params, step, rep = tckpt.restore_params_with_fallback(d, _port_params())
+    assert step == 10 and rep.fallback_depth == 1
+    assert [os.path.basename(p) for p in rep.quarantined] == [
+        os.path.basename(path) + ".corrupt"]
+    np.testing.assert_array_equal(params["weights"]["wd1"],
+                                  np.asarray(old["params"]["weights"]["wd1"]))
 
 
 def _trained_port_state(seed=3):
@@ -297,3 +359,59 @@ def test_resnet_train_state_crosses_bitwise_both_ways(tmp_path):
     for k in want:
         assert have[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(have[k], want[k])
+
+
+def test_background_writer_writes_what_a_synchronous_save_writes(
+        tmp_path, monkeypatch):
+    """A cadenced background save lands the same arrays a synchronous
+    save writes; its snapshot is taken on the calling thread, so a CPU
+    tensor changed in place after ``maybe_save`` does not reach the file;
+    a failed write raises on the next call; the forced save is
+    synchronous and ends the index at its step."""
+    import threading
+
+    clock = [1000.0]
+    monkeypatch.setattr(tckpt.time, "time", lambda: clock[0])
+    w = torch.arange(6, dtype=torch.float32)
+    state = {"params": {"w": w, "h": torch.ones(2, dtype=torch.bfloat16)},
+             "step": np.int32(1)}
+    tckpt.save_checkpoint(str(tmp_path / "sync"), state, 1)
+    gate = threading.Event()
+    real = tckpt._write_flat
+    monkeypatch.setattr(tckpt, "_write_flat",
+                        lambda *a: (gate.wait(30), real(*a))[1])
+    ck = tckpt.Checkpointer(str(tmp_path / "bg"), save_model_secs=5,
+                            background=True)
+    clock[0] += 5
+    assert ck.maybe_save(state, 1) is None
+    w.add_(100.0)  # the next step's in-place update
+    assert not os.path.exists(tmp_path / "bg" / "ckpt-1.npz")
+    gate.set()
+    ck.wait()
+    want = tckpt.load_flat(str(tmp_path / "sync" / "ckpt-1.npz"))
+    got = tckpt.load_flat(str(tmp_path / "bg" / "ckpt-1.npz"))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+    def fail(*a):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(tckpt, "_write_flat", fail)
+    clock[0] += 5
+    ck.maybe_save(state, 2)
+    ck._drain()
+    clock[0] += 5
+    with pytest.raises(RuntimeError, match="disk full"):
+        ck.maybe_save(state, 3)
+    monkeypatch.setattr(tckpt, "_write_flat", real)
+    clock[0] += 5
+    ck.maybe_save(state, 4)
+    assert ck.save(state, 5).endswith("ckpt-5.npz")  # drained, then written
+    assert tckpt.latest_checkpoint(str(tmp_path / "bg"))[1] == 5
+    assert sorted(tckpt._mono_steps(str(tmp_path / "bg"))) == [1, 4, 5]
+    ck.close()
+    assert ck._thread is None
+    with pytest.raises(RuntimeError, match="closed"):
+        clock[0] += 5
+        ck.maybe_save(state, 6)

@@ -408,6 +408,54 @@ def test_sync_loop_over_two_ranks_stops_together_and_the_chief_saves(
     assert jobs == {"worker/0"}  # only the chief logs
 
 
+def _final_eval_rank(rank, world, port, data_dir, logdir, out_dir):
+    """One rank of a sync run with the final test eval on; writes what
+    ``train`` returned for the test metrics and what the rank printed."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from distributed_tensorflow_tpu_torch import flags
+    from distributed_tensorflow_tpu_torch.training.loop import train
+
+    _join_group(rank, world, port)
+    flags.define_reference_flags()
+    flags.FLAGS._parse([
+        "--device=cpu", "--mode=sync", f"--task_index={rank}",
+        "--worker_hosts=" + ",".join([f"127.0.0.1:{port}"] * world),
+        f"--logdir={logdir}", f"--data_dir={data_dir}",
+        "--training_iter=2", "--batch_size=16", "--display_step=100",
+        "--save_model_secs=100000"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train(flags.FLAGS, mode="sync")
+    with open(os.path.join(out_dir, f"eval{rank}.json"), "w") as f:
+        json.dump({"test_metrics": res.test_metrics,
+                   "stdout": buf.getvalue()}, f)
+    dist.destroy_process_group()
+
+
+def test_only_the_chief_runs_the_final_test_eval(tmp_path):
+    """In a 2-rank sync run the chief evaluates the test split and prints
+    one ``test accuracy:`` line; rank 1 evaluates, prints and logs
+    nothing and returns ``test_metrics`` None, as the reference's
+    non-chief does."""
+    data_dir = write_mnist_idx(str(tmp_path / "mnist"))
+    logdir = str(tmp_path / "logs")
+    _spawn(_final_eval_rank, 2, free_port(), data_dir, logdir,
+           str(tmp_path))
+    chief, other = (json.load(open(tmp_path / f"eval{r}.json"))
+                    for r in (0, 1))
+    assert chief["stdout"].count("test accuracy: ") == 1
+    assert set(chief["test_metrics"]) == {"loss", "accuracy"}
+    assert other["test_metrics"] is None
+    assert "test accuracy" not in other["stdout"]
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["job"] for r in recs if "test_accuracy" in r] == ["worker/0"]
+
+
 def test_entry_point_trains_sync_over_two_processes(tmp_path):
     """The reference's launch: one process per worker, the same command
     with its own --task_index."""

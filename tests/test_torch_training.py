@@ -286,21 +286,22 @@ def test_reference_flags_and_validators(port_flags):
 
 
 def test_modes_that_are_not_ported_raise(port_flags):
-    """ps mode is the one mode still unported; sync over two workers is
-    ported (tests/test_torch_parallel.py trains it) and passes the gate."""
+    """Every mode is ported now: --ps_hosts resolves to ps mode, whose
+    roles run in ``parallel.ps_emulation`` (``tests/test_torch_ps_
+    emulation.py`` trains it), and ``train`` itself runs local and sync
+    only; two workers resolve to sync."""
     port_flags._parse(["--ps_hosts=a:1", "--worker_hosts=b:1"])
     spec = cluster.ClusterSpec.from_flags(port_flags)
     assert cluster.resolve_mode(port_flags) == "ps"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cluster.require_ported("ps", spec)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    assert spec.task_address("ps", 0) == "a:1"
+    with pytest.raises(ValueError, match="out of range"):
+        spec.task_address("ps", 1)
+    assert not hasattr(cluster, "require_ported")
+    with pytest.raises(ValueError, match="ps_emulation"):
         ttrain(port_flags, mode="ps")
     port_flags._reset()
     port_flags._parse(["--worker_hosts=a:1,b:2"])
-    spec = cluster.ClusterSpec.from_flags(port_flags)
     assert cluster.resolve_mode(port_flags) == "sync"
-    cluster.require_ported("sync", spec)
-    cluster.require_ported("sync", cluster.ClusterSpec({"worker": ["a:1"]}))
 
 
 def _run_entry(args, env=None, timeout=240):
