@@ -86,7 +86,21 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    (keep_prob 1, cuDNN deterministic); then global steps/s, images/s
    over both workers and worker/0's per-cycle split (pull, upload,
    grad, download, push) with the mirror on and off on either wire, in
-   turns, and the device's busy share over 20 of worker/0's cycles.
+   turns, and the device's busy share over 20 of worker/0's cycles;
+11. ZeRO-sharded sync DP on phase 8's one-rank NCCL group, in f32 and in
+   bf16: 20 graph-replayed device steps each of ``--zero 1``, ``--zero
+   3`` and ``--zero 3 --zero_overlap`` against 20 of phase 8's replicated
+   device step on the same draws, losses and the whole state (optimizer
+   slots included) bitwise under cuDNN's deterministic algorithms (at one
+   rank the reduce-scatter and the gather are copies); ``train(FLAGS,
+   mode="sync")`` with ``--zero 3 --zero_overlap --device_data --pallas``
+   for 300 steps to test accuracy 0.98, the kernel launched once per
+   forward pass, all "tma"; that run's final checkpoint resumed by a
+   replicated run and by itself, and phase 8's replicated checkpoint
+   resumed by ``--zero 1`` and by itself, 10 steps each, the resumed
+   pairs' checkpoints bitwise equal; then images/s/GPU and ms/step of
+   zero 0, 1, 3 and 3 overlapped in turns, each with its busy share and
+   the kernel counted by name in a profiled chunk.
 
 Any failed phase raises, so the script exits non-zero. f32 runs in full
 f32: TF32 is turned off for cuDNN and cuBLAS.
@@ -138,7 +152,12 @@ from distributed_tensorflow_tpu_torch.ops.fused_dense import (
     fused_dense_relu,
     fused_dense_relu_reference,
 )
-from distributed_tensorflow_tpu_torch.parallel import PSClient, make_mesh
+from distributed_tensorflow_tpu_torch.parallel import (
+    PSClient,
+    fetch_state_zero,
+    make_mesh,
+    shard_state_zero,
+)
 from distributed_tensorflow_tpu_torch.serving.__main__ import (
     build_serving_stack,
 )
@@ -147,6 +166,7 @@ from distributed_tensorflow_tpu_torch.training import train_state
 from distributed_tensorflow_tpu_torch.training.device_step import (
     WARMUP_STEPS,
     make_device_dp_train_step,
+    make_zero_device_train_step,
 )
 from distributed_tensorflow_tpu_torch.training.loop import (
     evaluate_only,
@@ -237,6 +257,11 @@ CIFAR_META = {"image_size": 32, "channels": 3}
 # first turn of each configuration with a profiled window of
 # PS_PROFILE_CYCLES of worker/0's cycles
 PS_STEPS, PS_TRAJ_STEPS, PS_TIME_STEPS, PS_PROFILE_CYCLES = 600, 20, 150, 20
+
+# phase 11: the ZeRO configurations (their flags beside phase 8's), in
+# the order of the timed turns; zero 0 is phase 8's replicated step
+ZERO = {"zero 0": (0, False), "zero 1": (1, False), "zero 3": (3, False),
+        "zero 3 overlap": (3, True)}
 PS_TRAJ_TOL = 1e-5
 PS_WIRE_ARGS = {"f32": (), "bf16": ("--bf16", "--ps_wire", "bf16")}
 PS_READY_S = 300  # a role that has not reported ready by then is stuck
@@ -1491,6 +1516,187 @@ def phase_times(card: str, served: dict) -> dict:
     return times
 
 
+def zero_args(name: str) -> tuple[str, ...]:
+    level, overlap = ZERO[name]
+    return ("--zero", str(level)) + (("--zero_overlap",) if overlap else ())
+
+
+def zero_vs_dp_replays(tag: str, mesh, data) -> dict:
+    """Phase 11 (a): 20 graph-replayed device steps of each ZeRO
+    configuration against 20 of the replicated device step, each from the
+    seed-0 init on the same draws (dropout on), cuDNN deterministic: the
+    losses and the standard-layout state, optimizer slots included."""
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, (level, overlap) in ZERO.items():
+            model = DeepCNN(compute_dtype=(torch.bfloat16 if tag == "bf16"
+                                           else None), use_pallas=True)
+            opt = train_state.adam(1e-3)
+            state = train_state.create_train_state(model, opt, seed=0,
+                                                   device="cuda")
+            state = state._replace(step=state.step.cuda())
+            if level:
+                state = shard_state_zero(state, mesh, level)
+                step_fn = make_zero_device_train_step(
+                    model, opt, mesh, level, data, 128, keep_prob=0.75,
+                    overlap=overlap)
+            else:
+                step_fn = make_device_dp_train_step(model, opt, mesh, data,
+                                                    128, keep_prob=0.75)
+            losses = {}
+            for s in range(TRAJ_STEPS):
+                state, m = step_fn(state, s, 1)
+                losses[s] = float(m["loss"])
+            if level:
+                state = fetch_state_zero(state, model, mesh, level)
+            runs[name] = (losses, flatten_pytree(state))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    dp_losses, dp_flat = runs["zero 0"]
+    same = {}
+    for name in list(ZERO)[1:]:
+        losses, flat = runs[name]
+        same[name] = (losses == dp_losses and sorted(flat) == sorted(dp_flat)
+                      and all(np.array_equal(flat[k], dp_flat[k])
+                              for k in dp_flat))
+    say("zero", f"{tag}: {TRAJ_STEPS} graph-replayed steps vs the replicated "
+                f"step's, keep_prob 0.75: loss {dp_losses[0]:.6f} -> "
+                f"{dp_losses[TRAJ_STEPS - 1]:.6f}; losses and state (params, "
+                f"optimizer slots, step) bitwise equal: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{tag}: a ZeRO step left the replicated "
+                             f"step's trajectory ({same})")
+    return same
+
+
+def phase_zero(tag: str, work: str, data_dir: str, mesh, data,
+               port: int) -> dict:
+    """Phase 11 (a)-(c): replays against DP, the main path to accuracy
+    with its launches, resumes across the two layouts."""
+    out = {"bitwise": zero_vs_dp_replays(tag, mesh, data)}
+    args = sync_args(port) + zero_args("zero 3 overlap")
+    test_n = datasets.SYNTHETIC_TEST
+    fused_dense.LAUNCHES = 0  # the main path's run starts here
+    fused_dense.LAUNCHES_BY_VARIANT.update(tma=0, simt=0)
+    main = TrainRun(os.path.join(work, f"{tag}-zero-main"), data_dir, tag,
+                    True, "--training_iter", str(TRAIN_STEPS), *args,
+                    mode="sync")
+    launches = fused_dense.LAUNCHES  # ... and ends here
+    by_variant = dict(fused_dense.LAUNCHES_BY_VARIANT)
+    want = WARMUP_STEPS + forwards(0, TRAIN_STEPS, 100, test_n)
+    res = main.result
+    for line in main.out.splitlines():
+        if line.startswith(("job: ", "test accuracy", "--zero")):
+            say("zero", f"{tag}: {line}")
+    acc = res.test_metrics["accuracy"]
+    say("zero", f"{tag}: {TRAIN_STEPS} steps of --zero 3 --zero_overlap "
+                f"--device_data --pallas, default keep_prob: test accuracy "
+                f"{acc:.4f} (need >= {ACCURACY_MIN}); kernel launches "
+                f"{launches} {by_variant} for {want} forward passes "
+                f"({WARMUP_STEPS} warm-up steps, {TRAIN_STEPS} replays, "
+                f"display evals, test eval)")
+    if res.final_step != TRAIN_STEPS or not acc >= ACCURACY_MIN:
+        raise AssertionError(f"{tag}: step {res.final_step}, test accuracy "
+                             f"{acc}")
+    if launches != want or by_variant != {"tma": want, "simt": 0}:
+        raise AssertionError(f"{tag}: {launches} launches {by_variant} for "
+                             f"{want} forward passes, all to be tma")
+
+    # each layout's final checkpoint resumed by the other layout and by
+    # its own, 10 steps; the pairs' checkpoints must be bitwise equal
+    stop = TRAIN_STEPS + RESUME_STEPS
+    resumed = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for src, names in ((f"{tag}-dev-main", ("zero 1", "zero 0")),
+                           (f"{tag}-zero-main",
+                            ("zero 0", "zero 3 overlap"))):
+            finals = []
+            for name in names:
+                logdir = os.path.join(work, f"{src}-by-{name}".replace(" ",
+                                                                       "-"))
+                shutil.copytree(os.path.join(work, src), logdir)
+                run = TrainRun(logdir, data_dir, tag, True, "--training_iter",
+                               str(stop), "--test_eval", "false",
+                               *sync_args(port), *zero_args(name),
+                               mode="sync")
+                if run.records("recovery_restore_step").get(TRAIN_STEPS) != \
+                        TRAIN_STEPS or run.result.final_step != stop:
+                    raise AssertionError(f"{tag}: {name} did not resume "
+                                         f"{src} from step {TRAIN_STEPS}")
+                finals.append(load_flat(os.path.join(logdir,
+                                                     f"ckpt-{stop}.npz")))
+            a, b = finals
+            resumed[f"{src} by {' and '.join(names)}"] = (
+                sorted(a) == sorted(b)
+                and all(np.array_equal(a[k], b[k]) for k in a))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    say("zero", f"{tag}: checkpoints at step {TRAIN_STEPS} resumed to "
+                f"{stop}, cuDNN deterministic; final states bitwise equal: "
+                f"{resumed}")
+    if not all(resumed.values()):
+        raise AssertionError(f"{tag}: a resume across the layouts differs "
+                             f"({resumed})")
+    out.update(launches=launches, accuracy=acc, resumed=resumed)
+    return out
+
+
+def phase_zero_times(card: str, work: str, data_dir: str, port: int,
+                     device: dict) -> dict:
+    """Phase 11 (d): images/s/GPU of zero 0, 1, 3 and 3 overlapped in
+    turns (0, 1, 3, 3o, 3o, 3, 1, 0), and each ZeRO configuration's busy
+    share over a profiled chunk whose trace must hold the kernel once per
+    step; zero 0's busy share is phase 8's."""
+    rates = {}
+    order = list(ZERO) + list(ZERO)[::-1]
+    for tag in DTYPES:
+        busy = {"zero 0": device[tag]["busy_share"]}
+        for name in list(ZERO)[1:]:
+            prof_dir = os.path.join(work, f"{tag}-zprof-{name}".replace(
+                " ", "-"))
+            prof = TrainRun(prof_dir, data_dir, tag, True, "--training_iter",
+                            str(2 * CHUNK), "--display_step", str(20 * CHUNK),
+                            "--test_eval", "false", "--profile_dir",
+                            os.path.join(prof_dir, "trace"),
+                            "--profile_steps", str(CHUNK), *sync_args(port),
+                            *zero_args(name), mode="sync")
+            on_device, idle = device_kernels(os.path.join(prof_dir, "trace",
+                                                          "trace.json"))
+            busy[name] = prof.result.device_busy_share
+            say("zero", f"{tag} {name}: a profiled chunk of {CHUNK} replays "
+                        f"ran the kernel {on_device} (by kernel name); busy "
+                        f"share {busy[name]}; idle per step "
+                        f"{idle['inside_us'] / CHUNK:.2f} us inside the "
+                        f"graph, {idle['boundary_us'] / CHUNK:.2f} us at the "
+                        f"boundaries")
+            if on_device != {"tma": CHUNK, "simt": 0}:
+                raise AssertionError(f"{tag} {name}: a chunk of {CHUNK} "
+                                     f"replays ran the kernel {on_device}")
+        for i, name in enumerate(order):
+            run = TrainRun(os.path.join(work, f"{tag}-zturn-{i}"), data_dir,
+                           tag, True, "--training_iter",
+                           str(DEVICE_TIME_STEPS), "--display_step",
+                           str(30 * CHUNK), "--test_eval", "false",
+                           *sync_args(port), *zero_args(name), mode="sync")
+            rates.setdefault((tag, name), []).append(
+                run.result.images_per_sec_per_chip)
+        for name in ZERO:
+            per = rates[(tag, name)]
+            mean = sum(per) / len(per)
+            rates[(tag, name)] = {"images_per_sec": per,
+                                  "ms_per_step": 128e3 / mean,
+                                  "busy_share": busy[name]}
+            say("times", f"{tag} device-resident --pallas {name:>14}: "
+                         f"{', '.join(f'{r:.1f}' for r in per)} images/s/GPU"
+                         f" (mean {mean:.1f}, {128e3 / mean:.4f} ms/step); "
+                         f"device busy share "
+                         f"{'not measured' if busy[name] is None else f'{busy[name]:.4f}'}"
+                         f" (torch.profiler) | {card}")
+    return rates
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1518,6 +1724,10 @@ def main() -> int:
             for tag in DTYPES:
                 phase_resnet(tag, work, data_dir, mesh, cifar)
             phase_resnet_times(card, work, data_dir, port)
+            del cifar
+            zeroed = {tag: phase_zero(tag, work, data_dir, mesh, data, port)
+                      for tag in DTYPES}
+            phase_zero_times(card, work, data_dir, port, resident)
         finally:
             dist.destroy_process_group()
         ps = {tag: phase_ps(tag, work, data_dir) for tag in DTYPES}
@@ -1530,7 +1740,8 @@ def main() -> int:
         by_path = {"serve": served[tag]["launches"],
                    "train": trained[tag]["launches"],
                    "device_resident": resident[tag]["launches"],
-                   "ps_worker0": ps[tag]["launches"]}
+                   "ps_worker0": ps[tag]["launches"],
+                   "zero3_overlap": zeroed[tag]["launches"]}
         kernels.append({
             "name": f"fused_dense_relu[{tag}]", "route": "cuda",
             "variant": "tma", "source": KERNEL_SRC, "replaces": TPU_KERNEL,

@@ -301,6 +301,33 @@ def define_reference_flags():
                    "written off-thread; training never blocks on the "
                    "disk). The final checkpoint on exit is always "
                    "synchronous")
+    DEFINE_integer("zero", 0, "ZeRO-sharded data parallelism (sync DP "
+                   "only, parallel/zero.py): 0 = replicated (default), "
+                   "1 = shard the optimizer state 1/D per rank (the "
+                   "gradients reduce-scatter instead of all-reduce, and "
+                   "one all-gather rebuilds the updated params), 3 = "
+                   "FSDP-style (the params live sharded too, gathered "
+                   "into the module for forward and backward). "
+                   "Trajectories match replicated DP (bit for bit where "
+                   "the collectives sum in the same order; last-ulp "
+                   "under --clip_norm); checkpoints stay standard-layout, "
+                   "so --zero runs and replicated runs of either package "
+                   "restore each other's. Composes with --device_data, "
+                   "--accum_steps, --clip_norm, --augment; not with the "
+                   "ps topology")
+    DEFINE_boolean("zero_overlap", False, "ZeRO collective schedule "
+                   "(requires --zero 1|3): the gradients reduce-scatter "
+                   "in --zero_bucket_mb buckets, one collective per "
+                   "bucket, and at level 3 the next step's parameter "
+                   "gather is issued right after the update (the "
+                   "prefetch; under --device_data it stays in the "
+                   "module's parameters across CUDA graph replays). "
+                   "Trajectories match the serial ZeRO path's (same "
+                   "padding, same chunk ownership)")
+    DEFINE_float("zero_bucket_mb", 4.0, "Bucket size in MB for "
+                 "--zero_overlap's bucketed reduce-scatter/all-gather: "
+                 "leaves group in canonical order until a bucket would "
+                 "exceed this, one collective per bucket")
     DEFINE_string("profile_dir", "", "If set, trace --profile_steps "
                   "post-warm-up training steps with torch.profiler into "
                   "this dir (a Chrome trace) and report the device's busy "
@@ -308,6 +335,7 @@ def define_reference_flags():
     DEFINE_integer("profile_steps", 10, "Number of steps in the profiler "
                    "window")
     FLAGS._register_validator(_validate_training_flags)
+    FLAGS._register_validator(_validate_zero_flags)
 
 
 def _require(values: dict, name: str, check, what: str):
@@ -399,6 +427,55 @@ def _validate_training_flags(values: dict):
             f"--job_name={job!r} must be 'ps', 'worker' or empty "
             f"(reference semantics, MNISTDist.py:13-31: the role this "
             f"process plays in the --ps_hosts topology)")
+
+
+def _validate_zero_flags(values: dict):
+    """The JAX package's parse-time --zero checks of the flags the port
+    has: an unknown level, --zero_overlap or --zero_bucket_mb without
+    their level, and the asynchronous ps topology. Divisibility needs no
+    check: ZeRO leaves flatten and zero-pad to a multiple of D. A data
+    axis of one rank is legal but pointless, and the loop says so. The
+    library re-checks (parallel/zero._check_level, loop.train)."""
+    raw = values.get("zero")
+    z = 0 if raw is None else int(raw)
+    if z not in (0, 1, 3):
+        raise ValueError(
+            f"--zero={z} must be 0 (replicated DP), 1 (shard the "
+            f"optimizer state over the data axis) or 3 (shard the params "
+            f"too, FSDP-style); level 2 (grad persistence sharding) does "
+            f"not exist in this build — grads are already transient")
+    overlap = bool(values.get("zero_overlap"))
+    bucket = values.get("zero_bucket_mb")
+    if bucket is not None and not 0 < float(bucket) <= 1024:
+        raise ValueError(
+            f"--zero_bucket_mb={bucket} must be in (0, 1024] MB (one "
+            f"collective per bucket; 0 or negative would bucket "
+            f"nothing, >1 GB is one flat scatter by another name)")
+    if overlap and z == 0:
+        raise ValueError(
+            "--zero_overlap only applies to --zero 1|3 (it reschedules "
+            "the ZeRO collectives); without --zero it would silently "
+            "change nothing — drop it or pick a --zero level")
+    if not overlap and bucket is not None and float(bucket) != 4.0:
+        raise ValueError(
+            f"--zero_bucket_mb={bucket} only applies with "
+            f"--zero_overlap (it sizes the overlap pattern's buckets); "
+            f"without it the flag would silently change nothing — drop "
+            f"it or add --zero_overlap")
+    if z == 0:
+        return
+    mode = values.get("mode") or "auto"
+    if mode == "ps" or values.get("ps_hosts") or values.get("job_name"):
+        raise ValueError(
+            f"--zero={z} requires SYNCHRONOUS data parallelism (the "
+            f"sharded optimizer update must see the same summed gradient "
+            f"on every rank); the ps topology (--ps_hosts/--job_name) is "
+            f"asynchronous. Drop them and use --mode=sync")
+    if mode == "local":
+        raise ValueError(
+            f"--zero={z} requires sync mode (a torch.distributed group "
+            f"to shard over); --mode=local has none. Use --mode=sync "
+            f"with --worker_hosts (one worker makes a group of one)")
 
 
 def _validate_flags(values: dict):

@@ -140,10 +140,35 @@ def _broadcast_(t: torch.Tensor, mesh) -> None:
 def replicate_state(mesh, state: TrainState) -> TrainState:
     """Rank 0's state on every rank: each tensor (parameters, optimizer
     slots, step) broadcast in place, and the uint32[2] key with them. A
-    fresh init and a restore start bitwise equal everywhere."""
+    fresh init and a restore start bitwise equal everywhere.
+
+    Refuses a ZeRO-layout state (``parallel.zero.ZeroState``): each rank
+    holds its own flat, padded chunks there, and broadcasting rank 0's
+    over the others would silently train on them as if they were the
+    standard layout. Fetch the standard layout first
+    (``parallel.zero.fetch_state_zero``) and replicate that."""
+    from distributed_tensorflow_tpu_torch.parallel.zero import ZeroState
+
+    if isinstance(state, ZeroState):
+        raise ValueError(
+            "replicate_state: the state is in the ZeRO layout (each "
+            "rank's own flat, padded chunks); re-replicating it would "
+            "treat rank 0's chunks as the standard layout. Fetch the "
+            "standard layout first (parallel.zero.fetch_state_zero) and "
+            "replicate that.")
     for leaf in tree_leaves(state):
         if isinstance(leaf, torch.Tensor):
             _broadcast_(leaf, mesh)
     key = torch.from_numpy(np.asarray(state.rng).astype(np.int64))
     _broadcast_(key, mesh)
     return state._replace(rng=key.numpy().astype(np.uint32))
+
+
+def dp_comm_rows(grad_bytes: int, d: int) -> list[dict]:
+    """Static per-step collective wire bytes of replicated DP: its one
+    collective, the gradient ``pmean`` (a ring all-reduce, ~2|G| over the
+    ranks). The ZeRO level-0 row, so the all-reduce convention has one
+    formula (``parallel/zero.zero_comm_rows``)."""
+    from distributed_tensorflow_tpu_torch.parallel.zero import zero_comm_rows
+
+    return zero_comm_rows(grad_bytes, 0, 0, d)

@@ -2,7 +2,8 @@
 
 The counterpart of ``distributed_tensorflow_tpu/training/device_step.py``
 (``_split_and_sample``, ``_sampled_step_body``, ``_scan_chunk``,
-``make_device_train_step``, ``make_device_dp_train_step``). There the
+``make_device_train_step``, ``make_device_dp_train_step``,
+``make_zero_device_train_step``). There the
 step draws its minibatch inside the compiled program and ``lax.scan``
 runs a chunk of steps per dispatch, so the host does one call per chunk.
 Here one step is:
@@ -12,7 +13,9 @@ Here one step is:
     (augment the uint8 images), forward, backward (a stateful model
     moves its batch-norm stats in place), (one ``all_reduce`` over the
     data-parallel ranks of the gradients, metrics and stats), clip, the
-    optimizer's in-place update, ``step += 1``.
+    optimizer's in-place update, ``step += 1``. The ZeRO step
+    (``ZeroDeviceTrainStep``) replaces the all-reduce and the update with
+    ``parallel.zero``'s reduce-scatter, sharded update and gather.
 
 On a CUDA device the step is captured once into a ``torch.cuda.CUDAGraph``
 after two warm-up runs on a side stream (cuDNN's and cuBLAS's handles,
@@ -40,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from distributed_tensorflow_tpu_torch.ops import fused_dense
+from distributed_tensorflow_tpu_torch.parallel import zero
 from distributed_tensorflow_tpu_torch.parallel.data_parallel import (
     local_batch_size,
     pmean_grads_and_metrics,
@@ -50,6 +54,7 @@ from distributed_tensorflow_tpu_torch.training.train_state import (
     augment_seed,
     compute_grads,
     dropout_seed,
+    params_of,
 )
 from distributed_tensorflow_tpu_torch.utils.pytree import tree_leaves
 
@@ -136,6 +141,17 @@ class DeviceTrainStep:
         if self.augment_fn is not None:
             images = self.augment_fn(images, self.augmenter)
         batch = (images, self.data.labels.index_select(0, idx))
+        opt_state, metrics = self._update(state, batch)
+        if not all(a is b for a, b in zip(tree_leaves(opt_state),
+                                          tree_leaves(state.opt_state))):
+            raise TypeError("the device step needs an optimizer that "
+                            "updates its slots in place")
+        state.step.add_(1)
+        return metrics
+
+    def _update(self, state, batch):
+        """The update half of a step on a drawn batch, in place: returns
+        (opt_state, metrics)."""
         grads, metrics, model_state = compute_grads(
             self.model, state.params, batch, keep_prob=self.keep_prob,
             rng=self.dropper, model_state=state.model_state)
@@ -144,12 +160,11 @@ class DeviceTrainStep:
                                                      self.mesh, model_state)
         opt_state = apply_gradients(self.optimizer, state, grads,
                                     self.grad_transform)
-        if not all(a is b for a, b in zip(tree_leaves(opt_state),
-                                          tree_leaves(state.opt_state))):
-            raise TypeError("the device step needs an optimizer that "
-                            "updates its slots in place")
-        state.step.add_(1)
-        return metrics
+        return opt_state, metrics
+
+    def _live_tensors(self, state) -> list:
+        """The tensors a step writes: the state's."""
+        return [t for t in tree_leaves(state) if isinstance(t, torch.Tensor)]
 
     def __call__(self, state, step: int, length: int = 1):
         if state.step.device != self.device:
@@ -176,7 +191,7 @@ class DeviceTrainStep:
     def _capture(self, state, step: int) -> None:
         """Warm up on a side stream, undo the warm-up's updates, then
         record one step into a CUDA graph."""
-        leaves = [t for t in tree_leaves(state) if isinstance(t, torch.Tensor)]
+        leaves = self._live_tensors(state)
         with torch.no_grad():
             saved = [t.clone() for t in leaves]
         current = torch.cuda.current_stream(self.device)
@@ -229,3 +244,52 @@ def make_device_dp_train_step(model, optimizer, mesh, data, batch_size: int,
                            keep_prob=keep_prob, grad_transform=grad_transform,
                            mesh=mesh, graph=graph, indices=indices,
                            augment_fn=augment_fn)
+
+
+class ZeroDeviceTrainStep(DeviceTrainStep):
+    """The ZeRO sync-DP device step (``--zero 1|3 --device_data``): the
+    DP device step's sampling, verbatim, and ``parallel.zero``'s update
+    (reduce-scatter, sharded update, gather) on a ``ZeroState``, captured
+    into the same CUDA graph. At level 3 the module's parameters are the
+    gathered-parameter buffer; they live outside the state and persist
+    across replays, so under ``overlap`` the prefetched gather that ends
+    one replay feeds the next."""
+
+    def __init__(self, model, optimizer, mesh, level: int, data,
+                 batch_size: int, *, keep_prob: float = 1.0,
+                 grad_transform=None, graph: bool | None = None,
+                 indices=None, augment_fn=None, overlap: bool = False,
+                 bucket_mb: float = zero.DEFAULT_BUCKET_MB):
+        super().__init__(model, optimizer, data, batch_size,
+                         keep_prob=keep_prob, grad_transform=grad_transform,
+                         mesh=mesh, graph=graph, indices=indices,
+                         augment_fn=augment_fn)
+        self._core = zero._zero_step_core(
+            model, optimizer, mesh, level, keep_prob, grad_transform,
+            overlap=overlap, bucket_bytes=int(bucket_mb * 2 ** 20))
+        self._buffer = (tree_leaves(params_of(model))
+                        if zero._check_level(level) >= 3 else [])
+
+    def _update(self, state, batch):
+        return self._core(state, batch, self.dropper)
+
+    def _live_tensors(self, state) -> list:
+        return super()._live_tensors(state) + self._buffer
+
+
+def make_zero_device_train_step(model, optimizer, mesh, level: int, data,
+                                batch_size: int, *, keep_prob: float = 1.0,
+                                grad_transform=None,
+                                graph: bool | None = None, indices=None,
+                                augment_fn=None, overlap: bool = False,
+                                bucket_mb: float = zero.DEFAULT_BUCKET_MB):
+    """ZeRO sync-DP step over ``mesh`` on a ``ZeroState``
+    (``parallel.zero.shard_state_zero``): each rank draws ``batch_size //
+    world_size`` examples as the DP device step does; ``grad_transform``
+    is ``zero_clip_transform`` for ``--clip_norm``."""
+    return ZeroDeviceTrainStep(model, optimizer, mesh, level, data,
+                               local_batch_size(batch_size, mesh),
+                               keep_prob=keep_prob,
+                               grad_transform=grad_transform, graph=graph,
+                               indices=indices, augment_fn=augment_fn,
+                               overlap=overlap, bucket_mb=bucket_mb)

@@ -2,9 +2,11 @@
 
 The counterpart of ``distributed_tensorflow_tpu/training/loop.py``'s
 ``train``, the local and sync branches of ``_train_once``,
-``_train_device_resident``, ``_HostCoordinator``, ``evaluate_only`` and
-``build_model_for``. Reference loop (``MNISTDist.py:172-188``): while not
-stopped and ``step < training_iter``, draw a minibatch; every
+``_train_device_resident``, ``_train_zero`` and ``_train_zero_device``
+(here ``_ZeroSession`` over the shared loops), ``_HostCoordinator``,
+``evaluate_only`` and ``build_model_for``. Reference loop
+(``MNISTDist.py:172-188``): while not stopped and ``step <
+training_iter``, draw a minibatch; every
 ``display_step`` print job/task, step and the minibatch loss and accuracy,
 evaluated *before* the update with dropout off (``:179-182``); then run one
 optimizer step. Termination is on the shared global step. On exit:
@@ -19,6 +21,10 @@ Sync mode is one process per device in the ``torch.distributed`` group
 the caller joined (``cluster.maybe_initialize_distributed``; the entry
 point does), with the gradients averaged every step (``parallel/``);
 more than one process agree on a stop every ``--coord_steps`` steps.
+``--zero 1|3`` shards the sync run's optimizer state (and at level 3 its
+parameters) over the ranks (``parallel/zero.py``); the standard-layout
+state then exists only as the host copy that a collective fetch makes at
+the steps every rank agrees on (``_ZeroSession``).
 """
 
 from __future__ import annotations
@@ -54,8 +60,17 @@ from distributed_tensorflow_tpu_torch.parallel import (
     make_mesh,
     replicate_state,
 )
+from distributed_tensorflow_tpu_torch.parallel.zero import (
+    _check_level,
+    fetch_state_zero,
+    make_zero_eval_step,
+    make_zero_train_step,
+    shard_state_zero,
+    zero_clip_transform,
+)
 from distributed_tensorflow_tpu_torch.training.device_step import (
     DeviceTrainStep,
+    ZeroDeviceTrainStep,
 )
 from distributed_tensorflow_tpu_torch.training.schedules import (
     schedule_from_flags,
@@ -237,11 +252,19 @@ class _Session:
         self.periodic_eval.prime(step)
         return state, step
 
+    def publish(self, box, state, step: int) -> None:
+        """Hand the supervisor the state to save on exit."""
+        box.update(state, step)
+
     def after_step(self, state, step: int) -> None:
         self.periodic_eval(state, step)
         if self.coord is not None:
             self.coord.tick(step)
         self.sv.maybe_checkpoint(state, step)
+
+    def finish(self, state, step: int):
+        """The state the end-of-run evaluation reads."""
+        return state
 
     def display(self, step: int, metrics: dict) -> dict:
         shown = {k: float(v) for k, v in metrics.items()}
@@ -257,7 +280,92 @@ class _Session:
                                    **self.stimer.scalars()})
 
 
+class _ZeroSession(_Session):
+    """The session of a ``--zero`` run. The live state is this rank's
+    ``ZeroState``; the standard layout, which the supervisor saves, exists
+    only as the host copy that ``fetch_state_zero`` makes, and that fetch
+    is a collective. So it runs only at steps every rank agrees on: a
+    display step, an ``--eval_step`` boundary crossed, the end, an agreed
+    stop, and a ``--coord_steps`` vote that found the chief's checkpoint
+    cadence due (one rank alone: its own cadence). Each fetch hands the
+    copy to the supervisor, then the chief's periodic eval and cadenced
+    save read it. A hard kill loses the steps since the last fetch."""
+
+    def __init__(self, FLAGS, model, ds, mesh, level: int):
+        super().__init__(FLAGS, model, ds, mesh)
+        self.model, self.level = model, level
+        self.display_step = FLAGS.display_step
+        self.eval_every = max(0, FLAGS.eval_step)
+        self.training_iter = FLAGS.training_iter
+        self.box = None
+        self.fetched_at = None
+        self.prev = None
+
+    def start(self, box):
+        """Rank 0's restored or fresh standard state on every rank, cut
+        into this rank's chunks."""
+        state, step = super().start(box)
+        self.box, self.prev = box, step
+        state = shard_state_zero(state, self.mesh, self.level)
+        self._fetch(state, step)  # the box holds a host copy from here
+        return state, step
+
+    def _fetch(self, state, step: int):
+        host = fetch_state_zero(state, self.model, self.mesh, self.level)
+        self.box.update(host, step)
+        self.fetched_at = step
+        return host
+
+    def publish(self, box, state, step: int) -> None:
+        """Nothing between agreed boundaries: ``after_step`` publishes."""
+
+    def after_step(self, state, step: int) -> None:
+        if self.coord is not None:
+            self.coord.tick(step)
+            due = self.coord.cadence_due()
+        else:
+            due = self.sv.checkpointer.cadence_due()
+        prev, self.prev = self.prev, step
+        crossed_eval = (self.eval_every
+                        and prev // self.eval_every != step // self.eval_every)
+        if (step % self.display_step == 0 or crossed_eval or due
+                or step >= self.training_iter or self.should_stop()):
+            host = self._fetch(state, step)
+            self.periodic_eval(state, step)  # the module's params are current
+            self.sv.maybe_checkpoint(host, step)
+
+    def finish(self, state, step: int):
+        if self.fetched_at != step:
+            self._fetch(state, step)
+        return state
+
+
+def _zero_fns(FLAGS, model, opt, mesh, level: int, accum: int, augment):
+    """--zero's clip, host-fed step and display eval over ``mesh``."""
+    level = _check_level(level)
+    if mesh.world_size == 1:
+        print(f"--zero={level} on a 1-chip mesh: the data axis has nothing "
+              f"to shard over — identical math to replicated DP, no memory "
+              f"or comm saving (legal, but pointless)")
+    clip = (zero_clip_transform(FLAGS.clip_norm, mesh)
+            if FLAGS.clip_norm > 0 else None)
+    step_fn = make_zero_train_step(
+        model, opt, mesh, level, keep_prob=FLAGS.keep_prob,
+        grad_transform=clip, accum_steps=accum, augment_fn=augment,
+        overlap=FLAGS.zero_overlap, bucket_mb=FLAGS.zero_bucket_mb)
+    zeval = make_zero_eval_step(model, mesh, level)
+    return clip, step_fn, (lambda state, batch:
+                           zeval(state.params, batch, state.model_state))
+
+
 def _train_once(FLAGS, mode: str = "local") -> TrainResult:
+    level = FLAGS.zero
+    if level and mode != "sync":
+        # a --mode=auto run of one worker lands here as "local"
+        raise ValueError(
+            f"--zero={level} requires sync mode (a torch.distributed group "
+            f"to shard over); got mode={mode!r}. Use --mode=sync with "
+            f"--worker_hosts (one worker makes a group of one)")
     device = _full_f32_on(FLAGS.device)
     mesh = _sync_mesh(FLAGS, device) if mode == "sync" else None
     n_chips = mesh.world_size if mesh is not None else 1
@@ -276,30 +384,48 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
     accum = max(1, FLAGS.accum_steps)
     if mesh is not None:
         feed_batch = local_batch_size(FLAGS.batch_size, mesh)
+    else:
+        feed_batch = FLAGS.batch_size
+    if level:
+        clip, step_fn, eval_fn = _zero_fns(FLAGS, model, opt, mesh, level,
+                                           accum, augment)
+    elif mesh is not None:
         step_fn = make_dp_train_step(model, opt, mesh,
                                      keep_prob=FLAGS.keep_prob,
                                      grad_transform=clip, accum_steps=accum,
                                      augment_fn=augment)
-        eval_fn = make_dp_eval_step(model, mesh)
+        dp_eval = make_dp_eval_step(model, mesh)
+        eval_fn = lambda state, batch: dp_eval(  # noqa: E731
+            batch, state.model_state)
     else:
-        feed_batch = FLAGS.batch_size
         step_fn = make_train_step(model, opt, keep_prob=FLAGS.keep_prob,
                                   grad_transform=clip, accum_steps=accum,
                                   augment_fn=augment)
-        eval_fn = make_eval_step(model)
+        local_eval = make_eval_step(model)
+        eval_fn = lambda state, batch: local_eval(  # noqa: E731
+            batch, state.model_state)
     if feed_batch % accum:
         raise ValueError(f"each process's batch of {feed_batch} (of "
                          f"--batch_size={FLAGS.batch_size}) must be "
                          f"divisible by --accum_steps={accum}")
+    run = (_ZeroSession(FLAGS, model, ds, mesh, level) if level
+           else _Session(FLAGS, model, ds, mesh))
     if FLAGS.device_data:
         if accum > 1:
             raise ValueError("--accum_steps splits host-fed batches; a "
                              "--device_data step draws one batch")
-        return _train_device_resident(FLAGS, device, ds, model, opt, state,
-                                      mesh, eval_fn, feed_batch, clip,
-                                      augment)
-
-    run = _Session(FLAGS, model, ds, mesh)
+        kwargs = dict(keep_prob=FLAGS.keep_prob, grad_transform=clip,
+                      augment_fn=augment)
+        if level:
+            make_step = lambda data: ZeroDeviceTrainStep(  # noqa: E731
+                model, opt, mesh, level, data, feed_batch,
+                overlap=FLAGS.zero_overlap, bucket_mb=FLAGS.zero_bucket_mb,
+                **kwargs)
+        else:
+            make_step = lambda data: DeviceTrainStep(  # noqa: E731
+                model, opt, data, feed_batch, mesh=mesh, **kwargs)
+        return _train_device_resident(FLAGS, device, ds, model, state, run,
+                                      eval_fn, feed_batch, make_step)
     with run.sv.managed(state) as box:
         state, step = run.start(box)
         batches = prefetch_to_device(
@@ -315,7 +441,7 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
             shown = None
             if step % FLAGS.display_step == 0:
                 # the float() readback is where this waits for the card
-                shown = run.display(step, eval_fn(batch, state.model_state))
+                shown = run.display(step, eval_fn(state, batch))
             t0 = time.perf_counter()
             state, _ = step_fn(state, batch)
             run.stimer.add("dispatch", time.perf_counter() - t0)
@@ -329,25 +455,22 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
     return _finish(FLAGS, run, model, ds, *out)
 
 
-def _train_device_resident(FLAGS, device, ds, model, opt, state, mesh,
-                           eval_fn, feed_batch: int, clip,
-                           augment) -> TrainResult:
+def _train_device_resident(FLAGS, device, ds, model, state, run, eval_fn,
+                           feed_batch: int, make_step) -> TrainResult:
     """--device_data training: the train split on the device, each step
     drawing its batch there, ``length`` steps per host iteration (one
-    CUDA graph replay each on a card). Per training step no batch crosses
-    from the host; per display step one host batch is staged for the
-    reference's display eval (dropout off, before the update,
-    ``MNISTDist.py:179-182``)."""
+    CUDA graph replay each on a card); ``make_step(data)`` builds the
+    step (replicated, or ZeRO's under ``--zero``). Per training step no
+    batch crosses from the host; per display step one host batch is
+    staged for the reference's display eval (dropout off, before the
+    update, ``MNISTDist.py:179-182``)."""
     data = put_device_data(ds.train, device)
     chunk = max(1, math.gcd(FLAGS.display_step, max(1, FLAGS.device_chunk)))
     if chunk != FLAGS.device_chunk:
         print(f"--device_chunk={FLAGS.device_chunk} clamped to {chunk} so "
               f"chunks land on --display_step={FLAGS.display_step} "
               f"boundaries")
-    step_fn = DeviceTrainStep(model, opt, data, feed_batch,
-                              keep_prob=FLAGS.keep_prob, grad_transform=clip,
-                              mesh=mesh, augment_fn=augment)
-    run = _Session(FLAGS, model, ds, mesh)
+    step_fn = make_step(data)
 
     def iterate(state, step: int):
         """The display eval on one host batch at a display step, then a
@@ -358,7 +481,7 @@ def _train_device_resident(FLAGS, device, ds, model, opt, state, mesh,
             batch = tuple(torch.from_numpy(a).to(device)
                           for a in ds.train.next_batch(feed_batch))
             run.stimer.add("host_wait", time.perf_counter() - t0)
-            shown = run.display(step, eval_fn(batch, state.model_state))
+            shown = run.display(step, eval_fn(state, batch))
         # realign to display boundaries after a resume from an arbitrary
         # step, then cap at the remaining budget
         to_boundary = -step % FLAGS.display_step or chunk
@@ -372,7 +495,7 @@ def _train_device_resident(FLAGS, device, ds, model, opt, state, mesh,
         state, step = run.start(box)
         # the learning-rate schedule reads the step inside the step
         state = state._replace(step=state.step.to(device))
-        box.update(state, step)
+        run.publish(box, state, step)
         out = _loop(FLAGS, run, device, box, state, step, iterate,
                     window=max(FLAGS.profile_steps, chunk))
     return _finish(FLAGS, run, model, ds, *out)
@@ -402,7 +525,7 @@ def _loop(FLAGS, run, device, box, state, step: int, iterate, window: int):
             # the step changed the parameters in place: publish the new
             # state before anything else can raise, so the final save
             # never pairs step-N+1 params with a step-N optimizer
-            box.update(state, step)
+            run.publish(box, state, step)
             if shown is not None:
                 last_display = shown
             meter.step(length * FLAGS.batch_size)
@@ -423,6 +546,7 @@ def _loop(FLAGS, run, device, box, state, step: int, iterate, window: int):
         stimer.add("device", time.perf_counter() - t0)
         images_per_sec = meter.images_per_sec
         run.close(step, images_per_sec)
+        state = run.finish(state, step)
     finally:
         if profiler is not None:
             profiler.stop()
@@ -453,11 +577,15 @@ class _HostCoordinator:
     rest waiting in the next collective. Every ``every`` steps (crossing
     semantics, ``step // every``, so a loop that advances by chunks still
     votes once per boundary) the processes ``all_gather`` their
-    supervisors' stop flags; any stop stops everyone, and the chief's
-    final save lands at the agreed step. Between boundaries
-    ``should_stop`` reads the cached result. The JAX package's vote also
-    carries elastic-membership and straggler columns and the sharded
-    checkpoint's nonce; their modules are not ported."""
+    supervisors' stop flags and checkpoint-cadence bits (only the chief's
+    can be set); any stop stops everyone, and the chief's final save
+    lands at the agreed step. Between boundaries ``should_stop`` reads
+    the cached result; ``cadence_due`` is the vote's cadence bit on the
+    step of a vote and False between votes, so a ``--zero`` run enters
+    its collective fetch for the chief's cadence on every rank at once.
+    The JAX package's vote also carries elastic-membership and straggler
+    columns and the sharded checkpoint's nonce; their modules are not
+    ported."""
 
     def __init__(self, sv, every: int, mesh):
         self._sv = sv
@@ -466,23 +594,30 @@ class _HostCoordinator:
         # NCCL moves device tensors, gloo host ones
         self._device = mesh.device if mesh.backend == "nccl" else "cpu"
         self._stop = False
+        self._cadence = False
         self._boundary = None
 
     def should_stop(self) -> bool:
         return self._stop
 
+    def cadence_due(self) -> bool:
+        return self._cadence
+
     def tick(self, step: int) -> None:
         """Call once per loop iteration, after ``step`` advanced; every
         process must call it with the same step sequence."""
         boundary = step // self._every
+        self._cadence = False
         if boundary == self._boundary:
             return
         self._boundary = boundary
-        mine = torch.tensor([int(self._sv.should_stop())], dtype=torch.int32,
-                            device=self._device)
+        mine = torch.tensor([int(self._sv.should_stop()),
+                             int(self._sv.checkpointer.cadence_due())],
+                            dtype=torch.int32, device=self._device)
         votes = [torch.empty_like(mine) for _ in range(self._mesh.world_size)]
         dist.all_gather(votes, mine, group=self._mesh.group)
-        self._stop = bool(torch.cat(votes).max())
+        votes = torch.stack(votes).amax(0)
+        self._stop, self._cadence = bool(votes[0]), bool(votes[1])
 
 
 def _start_profiler(device: torch.device):

@@ -43,7 +43,8 @@ def test_port_and_chip_smoke_import_no_jax():
     for new in ("parallel.mesh", "parallel.data_parallel",
                 "data.device_data", "training.device_step",
                 "models.resnet", "models.mlp", "ops.augment",
-                "parallel.ps_emulation", "checkpoint.inspect"):
+                "parallel.ps_emulation", "checkpoint.inspect",
+                "parallel.zero"):
         assert f"distributed_tensorflow_tpu_torch.{new}" in names
     proc = subprocess.run([sys.executable, "-c", _PROBE, *names,
                            "chip_smoke", "port_kernel_study"], cwd=REPO,
