@@ -41,7 +41,7 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    around a CUDA graph of many launches over rotating buffers larger than
    L2, beside the least time the card could take;
 7. the ``kernels`` JSON line, the card line, and ``{"ok": true, ...}`` last,
-   after phase 10;
+   after phase 12;
 8. device-resident sync DP: a one-rank NCCL group on
    ``tcp://127.0.0.1:<free port>``, then ``train(FLAGS, mode="sync")`` with
    ``--device_data --pallas`` in f32 and in bf16 (each step one CUDA graph
@@ -100,7 +100,34 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    resumed by ``--zero 1`` and by itself, 10 steps each, the resumed
    pairs' checkpoints bitwise equal; then images/s/GPU and ms/step of
    zero 0, 1, 3 and 3 overlapped in turns, each with its busy share and
-   the kernel counted by name in a profiled chunk.
+   the kernel counted by name in a profiled chunk;
+12. the causal LM at ``bench.py``'s ``lm_4k`` (vocab 64, seq 4096, batch
+   8) and ``lm_bigvocab`` (vocab 32768, seq 8192, batch 4) configurations
+   (d_model 256, 4 heads, 4 blocks, bf16, adam 1e-3): (a) the flash
+   attention's autograd Function against dense attention at one lm_4k
+   layer, (8, 4096, 4, 64) at block 512, causal, and the streamed head
+   against dense + softmax cross-entropy + accuracy on 4096 rows of
+   lm_bigvocab's head, values and gradients in f32 within 1e-4 of each
+   output's scale, with their times; (b) lm_4k trains 20 steps through
+   ``train(FLAGS)`` with ``--attn_block 512``, the loss finite and
+   falling, with tokens/s/GPU, ms/step, the peak memory of the run and
+   the busy share and top kernels of 5 profiled steps, and a few steps
+   with dense attention that must peak at least twice as high; (c)
+   lm_bigvocab trains 10 steps with ``--ce_block 512`` beside a few with
+   ``--ce_block 0``, which must peak at least twice as high; (d) the JAX
+   test's recall recipe (V 16, S 32, 200 adam steps) in f32 and bf16 to
+   the JAX package's test accuracy less 0.05, then its final checkpoint
+   restored and resumed; (e) a seeded lm_4k checkpoint served through
+   ``build_serving_stack --model lm`` in f32 and bf16: 32 HTTP
+   ``/v1/generate`` requests (prompt 64, 32 new tokens) from 8 threads,
+   every greedy token equal to the argmax of a full-prefix forward on the
+   card (a position whose top-2 margin is inside the logits' tolerance
+   is a near tie, counted and printed), decode logits at batch 8 within
+   1e-4 (f32) and 2e-2 (bf16) of the recompute's scale and whether they
+   are bitwise equal, a 400 for an out-of-vocabulary prompt, a seeded
+   sampled request that repeats, request p50/p99, and the prefill and
+   per-step decode times; (f) ``fused_dense_relu`` must not launch over
+   (b)-(e).
 
 Any failed phase raises, so the script exits non-zero. f32 runs in full
 f32: TF32 is turned off for cuDNN and cuBLAS.
@@ -121,6 +148,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -145,9 +173,20 @@ from distributed_tensorflow_tpu_torch.data import (
     read_data_sets,
     synthetic_digits,
 )
-from distributed_tensorflow_tpu_torch.models import DeepCNN, ResNet20, cnn
+from distributed_tensorflow_tpu_torch.models import (
+    DeepCNN,
+    ResNet20,
+    TransformerLM,
+    cnn,
+)
 from distributed_tensorflow_tpu_torch.ops.augment import make_augment
 from distributed_tensorflow_tpu_torch.ops import _build, fused_dense
+from distributed_tensorflow_tpu_torch.ops import nn as ops_nn
+from distributed_tensorflow_tpu_torch.ops.attention import (
+    blockwise_attention,
+    multi_head_attention,
+)
+from distributed_tensorflow_tpu_torch.ops.nn import streamed_softmax_ce_head
 from distributed_tensorflow_tpu_torch.ops.fused_dense import (
     fused_dense_relu,
     fused_dense_relu_reference,
@@ -266,6 +305,37 @@ PS_TRAJ_TOL = 1e-5
 PS_WIRE_ARGS = {"f32": (), "bf16": ("--bf16", "--ps_wire", "bf16")}
 PS_READY_S = 300  # a role that has not reported ready by then is stuck
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+# phase 12: the causal LM at bench.py's lm_4k (vocab 64, seq 4096, batch
+# 8) and lm_bigvocab (vocab 32768, seq 8192, batch 4) configurations,
+# width 256, 4 heads, 4 blocks, attn_block 512, ce_block 512, bf16. The
+# Functions are checked at one lm_4k layer's attention and a 4096-row
+# slice of lm_bigvocab's head, in f32, to 1e-4 of each output's scale
+LM_WIDTH = {"d_model": 256, "num_heads": 4, "num_blocks": 4}
+LM_4K, LM_BIGV = (4096, 64), (8192, 32768)  # (seq_len, vocab)
+LM_ATTN_SHAPE, LM_ATTN_BLOCK = (8, 4096, 4, 64), 512
+LM_HEAD_SHAPE, LM_CE_BLOCK = (4096, 256, 32768), 512
+LM_FN_TOL = 1e-4
+LM_4K_BATCH, LM_BIGV_BATCH = 8, 4
+LM_STEPS, LM_BIGV_STEPS, LM_MEM_STEPS, LM_PROFILE_STEPS = 20, 10, 3, 5
+LM_SPLIT = (64, 16)  # train and test sequences of phases 12b and 12c
+# 12d: the JAX test's recipe (tests/test_lm.py:238-256) through
+# train(FLAGS). The bar is the JAX package's test accuracy at it, read by
+# its own mnist_dist.py on a CPU (--model lm --dataset lm --seq_len 32
+# --vocab_size 16 --d_model 64 --num_heads 2 --num_blocks 2 --optimizer
+# adam --learning_rate 0.003 --batch_size 32 --training_iter 200
+# --keep_prob 1.0 --mode local [--bf16]; PERF.md), less 0.05, and never
+# under 3/V
+RECALL_VOCAB, RECALL_STEPS = 16, 200
+RECALL_ARGS = ("--model", "lm", "--dataset", "lm", "--seq_len", "32",
+               "--vocab_size", str(RECALL_VOCAB), "--d_model", "64",
+               "--num_heads", "2", "--num_blocks", "2", "--learning_rate",
+               "0.003", "--batch_size", "32", "--keep_prob", "1.0")
+RECALL_JAX = {"f32": 0.33453369140625, "bf16": 0.332275390625}
+# 12e: generate requests against an lm_4k checkpoint; decode logits vs
+# the full-prefix recompute within this share of the logits' scale
+LM_SERVE_REQUESTS, LM_PROMPT, LM_NEW = 32, 64, 32
+LM_SERVE_TOL = {"f32": 1e-4, "bf16": 2e-2}
 
 N_REQUESTS, N_THREADS = 64, 8
 KERNEL_SRC = "distributed_tensorflow_tpu_torch/ops/csrc/fused_dense_relu.cu"
@@ -1697,6 +1767,440 @@ def phase_zero_times(card: str, work: str, data_dir: str, port: int,
     return rates
 
 
+# ------------------------------------------------------------ phase 12: LM
+
+
+def lm_args(seq_len: int, vocab: int) -> tuple[str, ...]:
+    """The LM at bench.py's width (``LM_WIDTH``), ``seq_len`` by
+    ``vocab``."""
+    return ("--model", "lm", "--dataset", "lm", "--seq_len", str(seq_len),
+            "--vocab_size", str(vocab),
+            *(a for k, v in LM_WIDTH.items() for a in (f"--{k}", str(v))))
+
+
+def cuda_ms(fn, reps: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls after one warm-up,
+    from CUDA events around the calls (each ends in its own work)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|: the error in units of the
+    output's scale."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def phase_lm_functions() -> dict:
+    """12a: the flash attention and the streamed head against their plain
+    versions under autograd, in float32 on the card at the LM's shapes."""
+    g = torch.Generator().manual_seed(12)
+    q, k, v, do = (torch.randn(LM_ATTN_SHAPE, generator=g).cuda()
+                   for _ in range(4))
+
+    def attn_grads(fn):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ts)
+        return [out.detach()] + list(torch.autograd.grad(out, ts, do))
+
+    def dense(*ts):
+        return multi_head_attention(*ts, causal=True)
+
+    def flash(*ts):
+        return blockwise_attention(*ts, LM_ATTN_BLOCK, causal=True)
+
+    want, got = attn_grads(dense), attn_grads(flash)
+    errs = {n: rel_err(a, b) for n, a, b in
+            zip(("out", "dq", "dk", "dv"), got, want)}
+    del want, got
+    times = {"flash_ms": cuda_ms(lambda: attn_grads(flash)),
+             "dense_ms": cuda_ms(lambda: attn_grads(dense))}
+    say("lm", f"flash attention vs dense under autograd, f32 "
+              f"{LM_ATTN_SHAPE} block {LM_ATTN_BLOCK} causal: errors in "
+              f"units of each output's max " + ", ".join(
+                  f"{n} {e:.3e}" for n, e in errs.items())
+              + f" (tolerance {LM_FN_TOL}); forward+backward "
+              f"{times['flash_ms']:.3f} ms flash, {times['dense_ms']:.3f} "
+              f"ms dense (CUDA events)")
+    rows, d, vocab = LM_HEAD_SHAPE
+    h = torch.randn((rows, d), generator=g).cuda()
+    w = (torch.randn((d, vocab), generator=g) / d ** 0.5).cuda()
+    b = (torch.randn((vocab,), generator=g) * 0.1).cuda()
+    y = torch.randint(0, vocab, (rows,), generator=g).cuda()
+
+    def head_grads(streamed):
+        ts = [t.clone().requires_grad_() for t in (h, w, b)]
+        if streamed:
+            loss, acc = streamed_softmax_ce_head(*ts, y, LM_CE_BLOCK)
+        else:
+            logits = ops_nn.dense(*ts)
+            loss = ops_nn.softmax_cross_entropy(logits, y)
+            acc = ops_nn.accuracy(logits, y)
+        return [loss.detach(), acc] + list(torch.autograd.grad(loss, ts))
+
+    want, got = head_grads(False), head_grads(True)
+    head_errs = {n: rel_err(a, bb) for n, a, bb in
+                 zip(("loss", "acc", "dh", "dw", "db"), got, want)}
+    times.update(streamed_ms=cuda_ms(lambda: head_grads(True)),
+                 plain_head_ms=cuda_ms(lambda: head_grads(False)))
+    say("lm", f"streamed head vs dense + softmax_cross_entropy + accuracy, "
+              f"f32 {rows} rows, d {d}, V {vocab}, block {LM_CE_BLOCK}: "
+              + ", ".join(f"{n} {e:.3e}" for n, e in head_errs.items())
+              + f" (tolerance {LM_FN_TOL}); forward+backward "
+              f"{times['streamed_ms']:.3f} ms streamed, "
+              f"{times['plain_head_ms']:.3f} ms plain (CUDA events)")
+    worst = max(*errs.values(), *head_errs.values())
+    if not worst <= LM_FN_TOL:
+        raise AssertionError(f"an LM autograd Function disagrees with its "
+                             f"plain version: {errs} {head_errs}")
+    return {"max_rel_err": worst, **times}
+
+
+def lm_train_run(work: str, data_dir: str, name: str, seq_len: int,
+                 vocab: int, batch: int, steps: int, *extra: str,
+                 tag: str = "bf16"):
+    """One LM ``train(FLAGS)`` run, the device's peak memory reset just
+    before it: (run, the run's peak bytes above what earlier phases still
+    held when it started)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run = TrainRun(os.path.join(work, name), data_dir, tag, False,
+                   *lm_args(seq_len, vocab), "--learning_rate", "0.001",
+                   "--keep_prob", "1.0", "--batch_size", str(batch),
+                   "--training_iter", str(steps), "--test_eval", "false",
+                   *extra)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    say("lm", f"{name}: peak {peak / 2**30:.3f} GiB above the "
+              f"{held / 2**30:.3f} GiB held at its start")
+    return run, peak
+
+
+def lm_rate(run, seq_len: int, batch: int) -> tuple[float, float, dict]:
+    """(tokens/s/GPU, ms/step, StepTimer split in ms) of a run's window
+    after the warm-up step."""
+    rate = run.result.images_per_sec_per_chip * seq_len
+    last = run.result.final_step
+    split = {k: run.records(f"step_{k}_s")[last] * 1e3
+             for k in ("host_wait", "dispatch", "device")}
+    return rate, batch * seq_len * 1e3 / rate, split
+
+
+def phase_lm_train(card: str, work: str, data_dir: str) -> dict:
+    """12b, 12c: lm_4k and lm_bigvocab train through train(FLAGS), with
+    their rates, peaks and profiles, against the dense attention and the
+    unstreamed head in peak memory."""
+    out = {}
+    # bench.py's LM phases draw from a handful of sequences; LM_SPLIT
+    # keeps the 32k-vocab split's generation (an argsort per sequence)
+    # out of the phase's time
+    saved = datasets.LM_TRAIN, datasets.LM_TEST
+    datasets.LM_TRAIN, datasets.LM_TEST = LM_SPLIT
+    try:
+        flash = ("--attn_block", str(LM_ATTN_BLOCK), "--bf16")
+        traj, traj_peak = lm_train_run(work, data_dir, "lm4k-traj", *LM_4K,
+                                       LM_4K_BATCH, LM_STEPS, *flash,
+                                       "--display_step", "1")
+        losses = traj.records("mini_batch_loss")
+        seq = [losses[s] for s in range(LM_STEPS)]
+        say("lm", f"lm_4k bf16 flash: {LM_STEPS} steps, loss per step "
+                  f"{[round(x, 5) for x in seq]}; peak {traj_peak / 2**30:.3f}"
+                  f" GiB (display eval every step)")
+        if not (all(math.isfinite(x) for x in seq) and seq[-1] < seq[0]):
+            raise AssertionError(f"lm_4k: the loss is not finite and "
+                                 f"falling: {seq}")
+        timed, peak = lm_train_run(work, data_dir, "lm4k-time", *LM_4K,
+                                   LM_4K_BATCH, LM_STEPS, *flash,
+                                   "--display_step", "1000")
+        rate, ms, split = lm_rate(timed, LM_4K[0], LM_4K_BATCH)
+        prof_dir = os.path.join(work, "lm4k-prof")
+        prof, _ = lm_train_run(work, data_dir, "lm4k-prof", *LM_4K,
+                               LM_4K_BATCH, 1 + LM_PROFILE_STEPS, *flash,
+                               "--display_step", "1000", "--profile_dir",
+                               os.path.join(prof_dir, "trace"),
+                               "--profile_steps", str(LM_PROFILE_STEPS))
+        tk = trace_kernels(os.path.join(prof_dir, "trace", "trace.json"),
+                           LM_PROFILE_STEPS)
+        busy = prof.result.device_busy_share
+        dense, dense_peak = lm_train_run(work, data_dir, "lm4k-dense",
+                                         *LM_4K, LM_4K_BATCH, LM_MEM_STEPS,
+                                         "--bf16", "--display_step", "1000")
+        say("times", f"lm_4k bf16 flash (batch {LM_4K_BATCH}, seq "
+                     f"{LM_4K[0]}): "
+                     f"{rate:.1f} tokens/s/GPU, {ms:.3f} ms/step over steps "
+                     f"1-{LM_STEPS - 1}; per step " + ", ".join(
+                         f"{k} {v:.3f} ms" for k, v in split.items())
+                     + f" (StepTimer); peak {peak / 2**30:.3f} GiB; dense "
+                     f"attention peak {dense_peak / 2**30:.3f} GiB "
+                     f"({dense_peak / peak:.2f}x); busy share "
+                     f"{'not measured' if busy is None else f'{busy:.4f}'}, "
+                     f"{tk['kernels_per_step']:.1f} kernels, "
+                     f"{tk['busy_us_per_step']:.1f} us busy and "
+                     f"{tk['idle_us_per_step']:.1f} us idle between kernels "
+                     f"per step over {LM_PROFILE_STEPS} steps "
+                     f"(torch.profiler) | {card}")
+        for kname, us in tk["top_us_per_step"]:
+            say("times", f"lm_4k top kernel: {us:.1f} us/step {kname}")
+        if not dense_peak >= 2 * peak:
+            raise AssertionError(f"lm_4k: dense attention peaks at "
+                                 f"{dense_peak} bytes, not 2x the flash "
+                                 f"path's {peak}")
+        out["lm_4k"] = {"tokens_per_sec": rate, "ms_per_step": ms,
+                        "peak_bytes": peak, "dense_peak_bytes": dense_peak,
+                        "busy_share": busy, **tk}
+
+        both = ("--attn_block", str(LM_ATTN_BLOCK), "--ce_block",
+                str(LM_CE_BLOCK), "--bf16")
+        big, big_peak = lm_train_run(work, data_dir, "bigv-time", *LM_BIGV,
+                                     LM_BIGV_BATCH, LM_BIGV_STEPS, *both,
+                                     "--display_step", "1000")
+        brate, bms, bsplit = lm_rate(big, LM_BIGV[0], LM_BIGV_BATCH)
+        loss0 = big.records("mini_batch_loss")[0]
+        unstreamed, un_peak = lm_train_run(
+            work, data_dir, "bigv-dense-head", *LM_BIGV, LM_BIGV_BATCH,
+            LM_MEM_STEPS, "--attn_block", str(LM_ATTN_BLOCK), "--ce_block",
+            "0", "--bf16", "--display_step", "1000")
+        say("times", f"lm_bigvocab bf16 flash + streamed head (batch "
+                     f"{LM_BIGV_BATCH}, seq {LM_BIGV[0]}, V {LM_BIGV[1]}): "
+                     f"{brate:.1f} "
+                     f"tokens/s/GPU, {bms:.3f} ms/step over steps "
+                     f"1-{LM_BIGV_STEPS - 1}; per step " + ", ".join(
+                         f"{k} {v:.3f} ms" for k, v in bsplit.items())
+                     + f" (StepTimer); step-0 loss {loss0:.5f}; peak "
+                     f"{big_peak / 2**30:.3f} GiB; --ce_block 0 peak "
+                     f"{un_peak / 2**30:.3f} GiB ({un_peak / big_peak:.2f}x)"
+                     f" | {card}")
+        if not math.isfinite(loss0) or not un_peak >= 2 * big_peak:
+            raise AssertionError(f"lm_bigvocab: loss {loss0}, unstreamed "
+                                 f"peak {un_peak} vs streamed {big_peak}")
+        out["lm_bigvocab"] = {"tokens_per_sec": brate, "ms_per_step": bms,
+                              "peak_bytes": big_peak,
+                              "unstreamed_peak_bytes": un_peak}
+    finally:
+        datasets.LM_TRAIN, datasets.LM_TEST = saved
+    return out
+
+
+def phase_lm_recall(tag: str, work: str, data_dir: str) -> dict:
+    """12d: the JAX test's recipe reaches the JAX package's accuracy less
+    0.05; the final checkpoint restores and a second train resumes."""
+    logdir = os.path.join(work, f"{tag}-recall")
+    main = TrainRun(logdir, data_dir, tag, False, *RECALL_ARGS,
+                    "--training_iter", str(RECALL_STEPS))
+    acc = main.result.test_metrics["accuracy"]
+    need = max(RECALL_JAX[tag] - 0.05, 3 / RECALL_VOCAB)
+    say("lm", f"{tag}: recall recipe (V {RECALL_VOCAB}, S 32, d 64, 2 "
+              f"heads, 2 blocks, adam 3e-3, batch 32) {RECALL_STEPS} steps: "
+              f"test accuracy {acc:.4f} (need >= {need:.4f}: the JAX "
+              f"package's {RECALL_JAX[tag]} less 0.05); "
+              f"{main.result.images_per_sec * 32:.1f} tokens/s")
+    if main.result.final_step != RECALL_STEPS or not acc >= need:
+        raise AssertionError(f"{tag}: the LM did not learn the recall task "
+                             f"({acc})")
+    model = TransformerLM(vocab_size=RECALL_VOCAB, seq_len=32, d_model=64,
+                          num_heads=2, num_blocks=2,
+                          compute_dtype=torch.bfloat16 if tag == "bf16"
+                          else None)
+    template = train_state.create_train_state(model, train_state.adam(3e-3))
+    restored = restore_with_fallback(logdir, template)
+    if restored is None or restored[1] != RECALL_STEPS:
+        raise AssertionError(f"{tag}: the LM's final checkpoint did not "
+                             f"restore")
+    stop = RECALL_STEPS + RESUME_STEPS
+    again = TrainRun(logdir, data_dir, tag, False, *RECALL_ARGS,
+                     "--training_iter", str(stop))
+    resumed = again.records("recovery_restore_step").get(RECALL_STEPS)
+    acc2 = again.result.test_metrics["accuracy"]
+    say("lm", f"{tag}: restored step {restored[1]}; resumed from step "
+              f"{resumed} to {again.result.final_step}, test accuracy "
+              f"{acc2:.4f}")
+    if resumed != RECALL_STEPS or again.result.final_step != stop or \
+            not acc2 >= need:
+        raise AssertionError(f"{tag}: the LM resume did not continue")
+    return {"accuracy": acc, "resumed_accuracy": acc2}
+
+
+def _post_status(url: str, obj: dict) -> tuple[int, dict]:
+    try:
+        return 200, _post(url, obj)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def greedy_check(module, prompts, tokens, logits, tol: float) -> dict:
+    """Decoded tokens (and, when given, their logits) against a full-
+    prefix forward of ``module`` on the card at each position. A token
+    that differs where the recompute's top-2 margin is within ``tol`` of
+    the logits' scale is a near tie, counted and not failed."""
+    p = prompts.shape[1]
+    n = tokens.shape[1] - p
+    full = torch.zeros((len(tokens), module.seq_len), dtype=torch.long)
+    full[:, :p + n] = torch.from_numpy(tokens)
+    with torch.inference_mode():
+        ref = module(full.cuda())[:, p - 1:p + n - 1].float().cpu().numpy()
+    scale = float(np.abs(ref).max())
+    top2 = np.sort(ref, axis=-1)[..., -2:]
+    tie = (top2[..., 1] - top2[..., 0]) <= tol * scale
+    wrong = ref.argmax(-1) != tokens[:, p:]
+    out = {"mismatch": int((wrong & ~tie).sum()),
+           "near_tie": int(tie.sum()), "tie_mismatch": int((wrong & tie).sum()),
+           "positions": int(wrong.size)}
+    if logits is not None:
+        out["logit_err"] = float(np.abs(logits - ref).max()) / scale
+        out["bitwise_rows"] = int(np.all(logits == ref, axis=-1).sum())
+    return out
+
+
+def phase_lm_serve(tag: str, card: str, work: str) -> dict:
+    """12e: serve a seeded lm_4k checkpoint over HTTP /v1/generate."""
+    seq_len, vocab = LM_4K
+    model = TransformerLM(vocab_size=vocab, seq_len=seq_len,
+                          **LM_WIDTH).init(torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(7).integers(
+        0, vocab, (LM_SERVE_REQUESTS, LM_PROMPT)).astype(np.int32)
+    logdir = os.path.join(work, f"{tag}-lm-serve")
+    save_checkpoint(logdir, {"params": params_to_numpy(model),
+                             "step": np.int32(1)}, 1)
+    flags.define_flags()
+    flags.FLAGS._reset()
+    flags.FLAGS._parse(
+        ["--logdir", logdir, *lm_args(seq_len, vocab), "--serve_max_batch",
+         "8", "--serve_port", "0", "--serve_reload_secs", "0",
+         "--serve_timeout_ms", "120000", "--serve_max_new_tokens",
+         str(LM_NEW)] + (["--bf16"] if tag == "bf16" else []))
+    engine, client, _watcher, metrics = build_serving_stack(flags.FLAGS)
+    batcher = client.generate_batcher
+    server = InferenceServer(engine, client, port=0).start_background()
+    url = server.address + "/v1/generate"
+    outs = [None] * LM_SERVE_REQUESTS
+    try:
+        _post(url, {"prompt": prompts[0].tolist(), "max_new_tokens": LM_NEW})
+        torch.cuda.synchronize()
+        batcher.latency.reset()
+        batches0 = batcher.stats.as_dict()["batches"]
+
+        def worker(t):
+            for i in range(t, LM_SERVE_REQUESTS, N_THREADS):
+                outs[i] = _post(url, {"prompt": prompts[i].tolist(),
+                                      "max_new_tokens": LM_NEW})["tokens"]
+
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(N_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        lat = batcher.latency.summary()
+        batches = batcher.stats.as_dict()["batches"] - batches0
+        bad = _post_status(url, {"prompt": [1, vocab], "max_new_tokens": 4})
+        seeded = {"prompt": prompts[1].tolist(), "max_new_tokens": LM_NEW,
+                  "temperature": 1.0, "seed": 5}
+        first, again = _post(url, seeded), _post(url, seeded)
+    finally:
+        server.close()
+        batcher.close()
+        client.predict_batcher.close()
+        metrics.logger.close()
+    tokens = np.asarray(outs, dtype=np.int64)
+    module = engine.current()[0]
+    tol = LM_SERVE_TOL[tag]
+    http = greedy_check(module, prompts, tokens, None, tol)
+    direct = {"mismatch": 0, "near_tie": 0, "tie_mismatch": 0,
+              "positions": 0, "logit_err": 0.0, "bitwise_rows": 0}
+    for i in range(0, LM_SERVE_REQUESTS, 8):
+        got = engine.generate(prompts[i:i + 8], LM_NEW)
+        c = greedy_check(module, prompts[i:i + 8],
+                         got["tokens"].astype(np.int64), got["logits"], tol)
+        for key in direct:
+            direct[key] = (max(direct[key], c[key]) if key == "logit_err"
+                           else direct[key] + c[key])
+    split = decode_split(module, prompts[:8])
+    say("lm", f"{tag} serving lm_4k: {LM_SERVE_REQUESTS} HTTP generates "
+              f"(prompt {LM_PROMPT}, {LM_NEW} new) from {N_THREADS} threads "
+              f"in {wall:.3f} s, {batches} batches; greedy tokens vs the "
+              f"full-prefix argmax: {http}; direct decode at batch 8 vs the "
+              f"recompute: {direct} (logit tolerance {tol} of the scale; "
+              f"bitwise: {direct['bitwise_rows'] == direct['positions']}); "
+              f"out-of-vocab prompt -> {bad[0]}; seeded sample repeats: "
+              f"{first['tokens'] == again['tokens']}")
+    say("times", f"{tag} serving lm_4k: request p50 {lat['p50']:.3f} ms, p99 "
+                 f"{lat['p99']:.3f} ms over {int(lat['count'])} HTTP "
+                 f"generates (batcher histogram); at batch 8 prefill "
+                 f"{split['prefill_ms']:.3f} ms, decode "
+                 f"{split['decode_ms_per_step']:.3f} ms/step, "
+                 f"{split['decode_tokens_per_sec']:.1f} decode tokens/s "
+                 f"(synchronized host clock) | {card}")
+    if tokens.shape != (LM_SERVE_REQUESTS, LM_PROMPT + LM_NEW) or \
+            http["mismatch"] or direct["mismatch"] or \
+            not direct["logit_err"] <= tol:
+        raise AssertionError(f"{tag}: served tokens or logits disagree with "
+                             f"the full-prefix recompute: {http} {direct}")
+    if bad[0] != 400 or first["tokens"] != again["tokens"]:
+        raise AssertionError(f"{tag}: out-of-vocab -> {bad}, seeded sample "
+                             f"{first['tokens']} then {again['tokens']}")
+    return {"latency_ms": lat, "http": http, "direct": direct, **split}
+
+
+def decode_split(module, prompts) -> dict:
+    """Prefill and per-step decode time of one generate at the prompts'
+    batch, each call ended by a synchronize (the host reads the logits
+    right after either way); the second of two runs."""
+    from distributed_tensorflow_tpu_torch.serving import decode as dec
+
+    acc = {"prefill": 0.0, "step": 0.0, "steps": 0}
+
+    def timed(fn, key):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t0
+            acc["steps"] += key == "step"
+            return out
+        return call
+
+    prefill = timed(dec.make_prefill(module), "prefill")
+    step = timed(dec.make_decode_step(module), "step")
+    for _ in range(2):
+        acc.update(prefill=0.0, step=0.0, steps=0)
+        dec.generate(module, prompts, LM_NEW, prefill_fn=prefill,
+                     step_fn=step)
+    return {"prefill_ms": acc["prefill"] * 1e3,
+            "decode_ms_per_step": acc["step"] * 1e3 / acc["steps"],
+            "decode_tokens_per_sec": len(prompts) * acc["steps"]
+            / acc["step"]}
+
+
+def phase_lm(card: str, work: str, data_dir: str) -> dict:
+    """Phase 12, the causal LM; ``fused_dense_relu`` must not launch on
+    its paths (12f)."""
+    t0 = time.perf_counter()
+    fns = phase_lm_functions()
+    fused_dense.LAUNCHES = 0  # the LM paths' runs start here
+    trained = phase_lm_train(card, work, data_dir)
+    recall = {tag: phase_lm_recall(tag, work, data_dir) for tag in DTYPES}
+    served = {tag: phase_lm_serve(tag, card, work) for tag in DTYPES}
+    launches = fused_dense.LAUNCHES  # ... and end here
+    say("lm", f"fused_dense_relu launches over the LM paths: {launches}; "
+              f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    if launches:
+        raise AssertionError("the LM paths launched fused_dense_relu")
+    return {"functions": fns, "train": trained, "recall": recall,
+            "serve": served, "launches": launches}
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1733,6 +2237,7 @@ def main() -> int:
         ps = {tag: phase_ps(tag, work, data_dir) for tag in DTYPES}
         phase_ps_mirror_vs_full(work, data_dir)
         phase_ps_times(card, work, data_dir)
+        lm = phase_lm(card, work, data_dir)
     times = phase_times(card, served)
     kernels = []
     for tag in DTYPES:
@@ -1741,7 +2246,8 @@ def main() -> int:
                    "train": trained[tag]["launches"],
                    "device_resident": resident[tag]["launches"],
                    "ps_worker0": ps[tag]["launches"],
-                   "zero3_overlap": zeroed[tag]["launches"]}
+                   "zero3_overlap": zeroed[tag]["launches"],
+                   "lm_train_and_serve": lm["launches"]}
         kernels.append({
             "name": f"fused_dense_relu[{tag}]", "route": "cuda",
             "variant": "tma", "source": KERNEL_SRC, "replaces": TPU_KERNEL,

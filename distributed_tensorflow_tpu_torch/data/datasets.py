@@ -1,7 +1,7 @@
 """Dataset objects with the reference's input-data semantics.
 
 The counterpart of ``distributed_tensorflow_tpu/data/datasets.py`` for
-``mnist``, ``fashion_mnist`` and ``cifar10``:
+``mnist``, ``fashion_mnist``, ``cifar10`` and the token set ``lm``:
 ``read_data_sets(data_dir, one_hot=True)``
 plus per-worker ``next_batch(batch_size)``, every worker drawing its own
 independently shuffled minibatches (``MNISTDist.py:167,178``), and
@@ -9,7 +9,7 @@ independently shuffled minibatches (``MNISTDist.py:167,178``), and
 
 Sources, in priority order: IDX files (MNIST) or the CIFAR-10 python
 pickles in ``data_dir``, then the procedural sets of ``synthetic.py``.
-The token dataset ``lm`` is not ported yet.
+``lm`` is always procedural (``data/lm.py``).
 
 The epoch shuffle is the JAX package's native one (``native/fastdata.cpp``
 ``permutation``: Fisher-Yates driven by xorshift64*), written here in
@@ -28,6 +28,7 @@ import numpy as np
 
 from distributed_tensorflow_tpu_torch.data import synthetic
 from distributed_tensorflow_tpu_torch.data.idx import find_idx_file, read_idx
+from distributed_tensorflow_tpu_torch.data.lm import LMDataSet
 
 _MNIST_FILES = {
     "train_images": "train-images-idx3-ubyte",
@@ -38,6 +39,8 @@ _MNIST_FILES = {
 
 SYNTHETIC_TRAIN = 20000
 SYNTHETIC_TEST = 2000
+LM_TRAIN = 4096  # lm split sizes: sequences are procedural, fresh-
+LM_TEST = 512    # permutation-per-row; memorization is impossible anyway
 
 _U64 = 0xFFFFFFFFFFFFFFFF
 # batches normalize as the JAX package's native gather does (x * 1.0f/255.0f)
@@ -244,14 +247,18 @@ def _synthetic_split(num: int, seed: int,
 
 def read_data_sets(data_dir: str, one_hot: bool = True,
                    dataset: str = "mnist", seed: int = 0,
-                   validation_size: int = 0) -> Datasets:
+                   validation_size: int = 0, seq_len: int = 256,
+                   vocab_size: int = 64) -> Datasets:
     """API parity with the tutorial loader the reference imports
     (``MNISTDist.py:11,167``) for "mnist" and "fashion_mnist" (the same
     IDX format) and "cifar10" (the python pickles; float32 images, which
-    the thin-wire and device-resident paths quantize to uint8 once).
-    Falls back to procedural data when the files are absent (offline
-    hosts)."""
+    the thin-wire and device-resident paths quantize to uint8 once),
+    and "lm", procedural associative-recall token sequences for the
+    causal LM (``seq_len``/``vocab_size`` apply only there). Falls back
+    to procedural data when the files are absent (offline hosts)."""
     dataset = dataset.lower().replace("-", "_")
+    if dataset == "lm":
+        return _read_lm(seed, validation_size, seq_len, vocab_size)
     have_dir = bool(data_dir) and os.path.isdir(data_dir)
     if dataset in ("mnist", "fashion_mnist"):
         raw = _load_mnist_idx(data_dir) if have_dir else None
@@ -279,11 +286,6 @@ def read_data_sets(data_dir: str, one_hot: bool = True,
             source = "synthetic"
         meta = {"image_size": 32, "channels": 3, "num_classes": 10,
                 "flat": False}
-    elif dataset == "lm":
-        raise NotImplementedError(
-            "dataset 'lm' is not yet ported to "
-            "distributed_tensorflow_tpu_torch; mnist, fashion_mnist and "
-            "cifar10 are")
     else:
         raise ValueError(f"unknown dataset {dataset!r}")
 
@@ -304,3 +306,21 @@ def read_data_sets(data_dir: str, one_hot: bool = True,
         source=source,
         meta=meta,
     )
+
+
+def _read_lm(seed: int, validation_size: int, seq_len: int,
+             vocab_size: int) -> Datasets:
+    """The ``lm`` splits: ``LM_TRAIN`` and ``LM_TEST`` sequences from
+    seeds ``seed`` and ``seed + 10000``, and a validation split of any
+    positive size generated from its own seed space (``seed + 20000``),
+    not carved from the train split."""
+    if validation_size < 0:
+        raise ValueError(f"validation_size={validation_size} must be >= 0")
+    train = LMDataSet(LM_TRAIN, seq_len, vocab_size, seed=seed)
+    test = LMDataSet(LM_TEST, seq_len, vocab_size, seed=seed + 10_000)
+    val = (LMDataSet(validation_size, seq_len, vocab_size,
+                     seed=seed + 20_000) if validation_size else None)
+    return Datasets(
+        train=train, test=test, validation=val, source="synthetic",
+        meta={"kind": "lm", "seq_len": seq_len, "vocab_size": vocab_size,
+              "num_classes": vocab_size})

@@ -3,8 +3,9 @@
 
 The counterpart of ``distributed_tensorflow_tpu/flags.py``: the same
 lazily-parsed ``FLAGS`` singleton, ``DEFINE_*`` functions, parse-time
-validators and ``run(main)``. ``define_flags`` holds the flags the predict
-path reads plus the port-only ``--device``; ``define_reference_flags`` adds
+validators and ``run(main)``. ``define_flags`` holds the flags the serving
+routes (predict, generate) and model construction read, plus the
+port-only ``--device``; ``define_reference_flags`` adds
 the reference's 10 flags and the flags the local, sync and ps training
 loops read.
 Names, defaults and meanings match the JAX package's, so one command line
@@ -123,16 +124,37 @@ def run(main: Callable | None = None, argv=None):
 
 
 def define_flags():
-    """The predict path's flags (same names, defaults and meanings as the
-    JAX package's) plus ``--device``. Idempotent."""
+    """The serving routes' and the models' flags (same names, defaults and
+    meanings as the JAX package's) plus ``--device``. Idempotent."""
     if "device" in FLAGS._defs:
         return
     DEFINE_string("model", "deep_cnn", "Model architecture: "
-                  "deep_cnn|mlp|resnet20|resnet32 (mlp reads "
-                  "--hidden_units)")
+                  "deep_cnn|mlp|resnet20|resnet32|transformer|lm (mlp "
+                  "reads --hidden_units; lm is the causal next-token "
+                  "family and requires --dataset lm)")
     DEFINE_integer("hidden_units", 100, "Number of units in the hidden layer of the NN")
     DEFINE_string("dataset", "mnist", "Dataset the model was trained on: "
-                  "mnist|fashion_mnist|cifar10 (sets the input shape)")
+                  "mnist|fashion_mnist|cifar10|lm (sets the input shape; "
+                  "lm: procedural associative-recall token sequences for "
+                  "the causal-LM family, shaped by --seq_len/--vocab_size)")
+    DEFINE_integer("seq_len", 256, "Context length for --dataset lm "
+                   "(tokens per training sequence; targets are the "
+                   "sequence shifted one token)")
+    DEFINE_integer("vocab_size", 64, "Vocabulary for --dataset lm")
+    DEFINE_integer("d_model", 128, "Transformer width (transformer|lm)")
+    DEFINE_integer("num_heads", 4, "Attention heads (transformer|lm)")
+    DEFINE_integer("num_blocks", 2, "Transformer blocks (transformer|lm)")
+    DEFINE_integer("attn_block", 0, "If > 0, attention streams over "
+                   "key/value blocks of this many tokens (flash: online "
+                   "softmax forward, recomputing backward; O(S*block) peak "
+                   "memory instead of the dense O(S^2) scores). lm only")
+    DEFINE_integer("ce_block", 0, "If > 0, the LM loss head streams over "
+                   "row blocks of this many tokens (the (B,S,V) float32 "
+                   "logits never exist; O(block*V) peak in both passes). "
+                   "lm only")
+    DEFINE_boolean("remat", False, "Recompute each transformer block in "
+                   "the backward pass (torch.utils.checkpoint): activation "
+                   "memory drops to one block's worth for one more forward")
     DEFINE_boolean("bf16", False, "Run matmuls/convs in bfloat16")
     DEFINE_boolean("pallas", False, "Run the deep_cnn wd1 layer through "
                    "the hand-written CUDA kernel (ops/fused_dense.py); the "
@@ -161,6 +183,16 @@ def define_flags():
                  "cadence (0 = watching off)")
     DEFINE_integer("serve_metrics_every", 50, "Emit serving scalars every "
                    "this many microbatches (0 = off)")
+    DEFINE_integer("serve_max_new_tokens", 32, "Default (and cap) for "
+                   "generate requests' new-token budget; prompt + budget "
+                   "must fit the model's context window")
+    DEFINE_float("serve_temperature", 0.0, "Default sampling temperature "
+                 "for generate requests (0 = greedy)")
+    DEFINE_string("serve_scheduler", "whole_batch", "Generate-route "
+                  "scheduler: 'whole_batch' (DynamicBatcher: one "
+                  "microbatch committed for its entire generation); "
+                  "'continuous' (the paged-KV slot scheduler) is not yet "
+                  "ported and raises")
     FLAGS._register_validator(_validate_flags)
 
 
@@ -507,3 +539,19 @@ def _validate_flags(values: dict):
         raise ValueError("--serve_reload_secs must be >= 0")
     if int(values["serve_metrics_every"]) < 0:
         raise ValueError("--serve_metrics_every must be >= 0 (0 = off)")
+    if int(values["serve_max_new_tokens"]) < 1:
+        raise ValueError("--serve_max_new_tokens must be >= 1")
+    if float(values["serve_temperature"]) < 0:
+        raise ValueError("--serve_temperature must be >= 0 (0 = greedy)")
+    sched = values["serve_scheduler"]
+    if sched not in ("whole_batch", "continuous"):
+        raise ValueError(f"--serve_scheduler={sched!r} must be one of "
+                         f"whole_batch, continuous")
+    _require(values, "seq_len", lambda v: int(v) >= 2,
+             "must be >= 2 (targets are the sequence shifted one token)")
+    _require(values, "vocab_size", lambda v: int(v) >= 2,
+             "must be >= 2")
+    _require(values, "attn_block", lambda v: int(v) >= 0,
+             "must be >= 0 (0 = dense attention)")
+    _require(values, "ce_block", lambda v: int(v) >= 0,
+             "must be >= 0 (0 = dense loss head)")

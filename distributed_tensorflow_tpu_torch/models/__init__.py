@@ -4,6 +4,7 @@ from distributed_tensorflow_tpu_torch.models import (  # noqa: F401
     cnn,
     mlp,
     resnet,
+    transformer,
 )
 from distributed_tensorflow_tpu_torch.models.cnn import DeepCNN  # noqa: F401
 from distributed_tensorflow_tpu_torch.models.mlp import MLP  # noqa: F401
@@ -16,4 +17,8 @@ from distributed_tensorflow_tpu_torch.models.resnet import (  # noqa: F401
     ResNet,
     ResNet20,
     ResNet32,
+)
+from distributed_tensorflow_tpu_torch.models.transformer import (  # noqa: F401
+    MiniTransformer,
+    TransformerLM,
 )

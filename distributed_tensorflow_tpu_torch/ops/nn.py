@@ -2,7 +2,8 @@
 
 The counterpart of ``distributed_tensorflow_tpu/ops/nn.py`` (``conv2d``,
 ``maxpool2d``, ``dense``, ``normalize_if_u8``, ``dropout``,
-``softmax_cross_entropy``, ``accuracy``, ``batch_norm``), plus ``conv``,
+``softmax_cross_entropy``, ``accuracy``, ``batch_norm`` and the LM's
+``streamed_softmax_ce_head``), plus ``conv``,
 the bare SAME convolution of ``models/resnet.py``'s ``_conv``. Public
 functions keep the reference's layouts: NHWC activations and HWIO conv
 kernels. ``conv2d`` hands cuDNN an NCHW view of the NHWC tensor (the
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -123,6 +125,112 @@ def softmax_cross_entropy(logits, labels):
     else:
         per_example = -(labels.float() * logp).sum(-1)
     return per_example.mean()
+
+
+class _StreamedCE(torch.autograd.Function):
+    """Dense head + softmax cross-entropy + accuracy over row blocks (the
+    JAX package's ``_streamed_ce`` custom VJP). The forward keeps each
+    row's logsumexp; the backward recomputes each block's logits from
+    (h, w, b) and those, so no more than one (block, V) float32 panel
+    exists in either pass. dw and db accumulate in float32."""
+
+    @staticmethod
+    def forward(ctx, h2, w, b, labels2, block, cd, n_valid):
+        n_pad = h2.shape[0]
+        inv = float(np.float32(1.0 / n_valid))
+        loss_sum = torch.zeros((), dtype=torch.float32, device=h2.device)
+        corr_sum = torch.zeros((), dtype=torch.float32, device=h2.device)
+        lses = []
+        wc = w.to(cd) if cd is not None else w  # cast once, not per block
+        for start in range(0, n_pad, block):
+            sl = slice(start, start + block)
+            # one block's logits as the unstreamed head computes them:
+            # the dot in cd, cast back, the bias, then float32
+            logits = dense(h2[sl], wc, b, compute_dtype=cd).float()
+            lbl = labels2[sl].long()
+            vocab = logits.shape[-1]
+            m = logits.amax(dim=-1)
+            lse = m + torch.log(torch.exp(logits - m[:, None]).sum(dim=-1))
+            # out-of-range ids: zero loss and zero gradient (the one-hot
+            # of such an id is all zeros); accuracy counts them as misses
+            ok = (lbl >= 0) & (lbl < vocab)
+            lab = logits.gather(1, lbl.clamp(0, vocab - 1)[:, None])[:, 0]
+            lab = torch.where(ok, lab, torch.zeros_like(lab))
+            rows = torch.arange(start, start + len(lbl), device=h2.device)
+            vf = (rows < n_valid).float()
+            loss_sum = loss_sum + ((lse - lab) * vf * ok.float()).sum()
+            hit = (logits.argmax(dim=-1) == lbl).float()
+            corr_sum = corr_sum + (hit * vf).sum()
+            lses.append(lse)
+        ctx.save_for_backward(h2, w, b, labels2, torch.cat(lses))
+        ctx.block, ctx.cd, ctx.n_valid = block, cd, n_valid
+        acc = corr_sum * inv
+        ctx.mark_non_differentiable(acc)
+        return loss_sum * inv, acc
+
+    @staticmethod
+    def backward(ctx, g_loss, _g_acc):
+        h2, w, b, labels2, lses = ctx.saved_tensors
+        block, cd, n_valid = ctx.block, ctx.cd, ctx.n_valid
+        n_pad = h2.shape[0]
+        scale = g_loss.float() / n_valid
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        db = torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+        dhs = []
+        wc = w.to(cd) if cd is not None else w
+        for start in range(0, n_pad, block):
+            sl = slice(start, start + block)
+            h_blk = h2[sl]
+            logits = dense(h_blk, wc, b, compute_dtype=cd).float()
+            lbl = labels2[sl].long()
+            vocab = logits.shape[-1]
+            g = torch.exp(logits - lses[sl][:, None])
+            ok = (lbl >= 0) & (lbl < vocab)
+            rows = torch.arange(len(lbl), device=g.device)
+            # softmax - onehot: subtract 1 at an in-range label (an
+            # out-of-range row subtracts 0 and is zeroed by ``ok`` below)
+            g[rows, lbl.clamp(0, vocab - 1)] -= ok.float()
+            valid = (torch.arange(start, start + len(lbl), device=g.device)
+                     < n_valid).float()
+            g = g * (valid * ok.float() * scale)[:, None]
+            if cd is not None:
+                gc = g.to(cd)
+                dhs.append((gc @ wc.T).to(h2.dtype))
+                dw = dw + (h_blk.to(cd).T @ gc).float()
+            else:
+                dhs.append((g @ w.T).to(h2.dtype))
+                dw = dw + h_blk.T @ g
+            db = db + g.sum(dim=0)
+        return (torch.cat(dhs), dw.to(w.dtype), db.to(b.dtype), None, None,
+                None, None)
+
+
+def streamed_softmax_ce_head(h, w, b, labels, block: int,
+                             compute_dtype=None):
+    """Fused dense head + softmax cross-entropy + accuracy, streamed over
+    row blocks of ``block`` rows so the (..., V) float32 logits never
+    exist beyond one (block, V) panel, forward or backward.
+
+    ``h``: (..., d) hidden states; ``labels``: integer ids of ``h``'s
+    leading shape; ``w``, ``b``: the head. Values and gradients match
+    ``softmax_cross_entropy(dense(h, w, b, compute_dtype=...), labels)``
+    and ``accuracy`` to float32 rounding. The rows are zero-padded to a
+    multiple of ``block`` and the padding is masked out. Returns (mean
+    loss, accuracy), both float32 scalars; the accuracy carries no
+    gradient."""
+    d = h.shape[-1]
+    if tuple(labels.shape) != tuple(h.shape[:-1]):
+        raise ValueError(f"labels shape {tuple(labels.shape)} != hidden "
+                         f"leading shape {tuple(h.shape[:-1])}")
+    n_valid = labels.numel()
+    h2 = h.reshape(n_valid, d)
+    labels2 = labels.reshape(n_valid)
+    pad = (-n_valid) % int(block)
+    if pad:
+        h2 = torch.cat([h2, h2.new_zeros((pad, d))])
+        labels2 = torch.cat([labels2, labels2.new_zeros((pad,))])
+    return _StreamedCE.apply(h2, w, b, labels2, int(block), compute_dtype,
+                             n_valid)
 
 
 def accuracy(logits, labels):

@@ -680,9 +680,21 @@ class PSClient:
 
 # ---------------------------------------------------------------- roles
 
+def refuse_lm(FLAGS) -> None:
+    """The causal LM in the ps topology is not ported yet: every role
+    raises, so no ps is left serving for workers that cannot start."""
+    if "lm" in (getattr(FLAGS, "model", None),
+                getattr(FLAGS, "dataset", None)):
+        raise NotImplementedError(
+            "--model lm / --dataset lm in the ps topology (--ps_hosts) is "
+            "not yet ported to distributed_tensorflow_tpu_torch (ROADMAP "
+            "queue 1); train it local or --mode sync")
+
+
 def run_parameter_server(cluster, FLAGS):
     """The ps role: bind the advertised address (not 0.0.0.0), serve
     params until a shutdown message (MNISTDist.py:105-106)."""
+    refuse_lm(FLAGS)
     addr = cluster.task_address("ps", FLAGS.task_index)
     server = PSServer(FLAGS.task_index, addr)
     print(f"ps/{FLAGS.task_index} serving at {addr}", flush=True)
@@ -1151,6 +1163,7 @@ def run_worker(cluster, FLAGS) -> int:
     images/s, global steps/s, per-cycle time split and (with
     ``--profile_dir``) the device's busy share over ``--profile_steps``
     cycles before "Optimization Finished!"."""
+    refuse_lm(FLAGS)
     from distributed_tensorflow_tpu_torch.data import read_data_sets
     from distributed_tensorflow_tpu_torch.training.loop import (
         _full_f32_on,

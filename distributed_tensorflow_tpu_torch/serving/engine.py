@@ -13,7 +13,10 @@ step restores off the serving path into a fresh copy of the model, and
 the reference swaps atomically between microbatches — in-flight batches
 keep the module they started with, so nothing is dropped.
 
-Mesh, tensor-parallel placement and ``generate`` come with later slices.
+``generate`` decodes a causal LM's prompts through the KV cache of
+``serving/decode.py``, one (prefill, step) pair per engine.
+
+Mesh and tensor-parallel placement come with later slices.
 """
 
 from __future__ import annotations
@@ -70,15 +73,17 @@ class InferenceEngine:
         self.logdir = logdir
         self.device = resolve_device(device)
         self.max_batch = int(max_batch)
-        # the wire delivers JSON numbers; the ported (dense) models take
-        # float32, so the engine owns the cast
-        self.input_dtype = np.float32
+        # the wire delivers JSON numbers; the LM takes int32 token ids,
+        # every other model float32, so the engine owns the cast
+        self.input_dtype = (np.int32 if hasattr(model, "vocab_size")
+                            else np.float32)
         self._swap_lock = threading.Lock()
         # one reload at a time: two racing restores could swap an older
         # set over a newer one
         self._reload_lock = threading.Lock()
         self._module = None
         self._step = -1
+        self._decode_fns = None  # (prefill, step), made on first generate
         self.counters = {"reloads": 0, "reload_failures": 0,
                          "reload_fallbacks": 0, "last_reload_ms": 0.0,
                          "last_fallback_depth": 0}
@@ -132,6 +137,42 @@ class InferenceEngine:
         with torch.inference_mode():
             out = module(torch.from_numpy(x).to(self.device))
             return out[:b].float().cpu().numpy()
+
+    def generate(self, prompts, max_new_tokens: int, *,
+                 temperature: float = 0.0, seed: int | None = None) -> dict:
+        """Autoregressive decode of a (B, P) prompt batch through the KV
+        cache (``serving/decode.py``) with the current parameters. The
+        batch pads to its power-of-two bucket, at least 2, with copies of
+        the last prompt. Sampling draws from a CPU ``torch.Generator``
+        seeded by ``seed``; ``seed=None`` with temperature > 0 draws fresh
+        entropy per call, so identical prompts do not return identical
+        "random" samples. Returns ``{"tokens", "logits"}`` for the real
+        rows."""
+        import os
+
+        from distributed_tensorflow_tpu_torch.serving import decode as dec
+
+        prompts = np.asarray(prompts, dtype=np.int32)
+        b = prompts.shape[0]
+        bucket = max(self._bucket(b), 2)  # the decode floor: see decode.py
+        if bucket > b:
+            pad = np.repeat(prompts[-1:], bucket - b, axis=0)
+            prompts = np.concatenate([prompts, pad], axis=0)
+        with self._swap_lock:
+            if self._decode_fns is None:
+                self._decode_fns = (dec.make_prefill(self.model),
+                                    dec.make_decode_step(self.model))
+            fns = self._decode_fns
+        module, _ = self.current()
+        generator = None
+        if temperature > 0.0:
+            if seed is None:
+                seed = int.from_bytes(os.urandom(4), "little")
+            generator = torch.Generator().manual_seed(int(seed))
+        out = dec.generate(module, prompts, max_new_tokens,
+                           temperature=temperature, generator=generator,
+                           prefill_fn=fns[0], step_fn=fns[1])
+        return {"tokens": out["tokens"][:b], "logits": out["logits"][:b]}
 
     # ------------------------------------------------------ hot-reload
 

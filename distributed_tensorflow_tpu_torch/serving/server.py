@@ -1,19 +1,23 @@
-"""JSON-over-HTTP front end + in-process client for the predict route.
+"""JSON-over-HTTP front end + in-process client for the predict and
+generate routes.
 
 The counterpart of ``distributed_tensorflow_tpu/serving/server.py``,
 stdlib only (``http.server``):
 
-    POST /v1/predict   {"inputs": [...]}  ONE example  -> {"outputs"}
-    GET  /healthz                                      -> {"ok", "step"}
-    GET  /stats                                        -> counters + quantiles
-    GET  /metrics                                      -> full serving JSON
+    POST /v1/predict   {"inputs": [...]}  ONE example       -> {"outputs"}
+    POST /v1/generate  {"prompt": [ids], "max_new_tokens",
+                        "temperature", "seed"}              -> {"tokens"}
+    GET  /healthz                                           -> {"ok", "step"}
+    GET  /stats                                             -> counters + quantiles
+    GET  /metrics                                           -> full serving JSON
 
 One example per request by design: batching is the server's job. A
-``RejectedError`` (queue full, deadline, closed) is 429, bad JSON 400, a
+``RejectedError`` (queue full, deadline, closed) is 429, bad JSON or a
+bad request (an out-of-vocabulary prompt, a budget over the cap) 400, a
 request still running at the client's wait 504, anything else 500.
 
-The generate route, the admin reload route and the memory, KV-page and
-request-plane blocks of ``/metrics`` come with later slices.
+The admin reload route and the memory, KV-page and request-plane blocks
+of ``/metrics`` come with later slices.
 """
 
 from __future__ import annotations
@@ -42,11 +46,24 @@ def _result_with_id(fut, wait_s: float):
 
 
 class InProcessClient:
-    """Typed request surface over the predict batcher — the engine-side
-    twin of the HTTP route."""
+    """Typed request surface over the predict and/or generate batcher —
+    the engine-side twin of the HTTP routes. Owns the generate route's
+    request policy: the default new-token budget and temperature for
+    requests that omit them (``--serve_max_new_tokens``,
+    ``--serve_temperature``) and the budget cap, above which a request is
+    refused (400 on the wire) instead of holding the batch worker."""
 
-    def __init__(self, predict_batcher: DynamicBatcher | None = None):
+    def __init__(self, predict_batcher: DynamicBatcher | None = None,
+                 generate_batcher: DynamicBatcher | None = None, *,
+                 default_max_new_tokens: int = 16,
+                 max_new_tokens_cap: int | None = None,
+                 default_temperature: float = 0.0):
         self.predict_batcher = predict_batcher
+        self.generate_batcher = generate_batcher
+        self.default_max_new_tokens = int(default_max_new_tokens)
+        self.max_new_tokens_cap = (None if max_new_tokens_cap is None
+                                   else int(max_new_tokens_cap))
+        self.default_temperature = float(default_temperature)
 
     def predict(self, x, timeout_ms: float | None = None,
                 wait_s: float = 30.0):
@@ -63,6 +80,37 @@ class InProcessClient:
         out = _result_with_id(fut, wait_s)
         return out, {"request_id": fut.request_id}
 
+    def generate(self, prompt, max_new_tokens: int | None = None,
+                 temperature: float | None = None, seed: int | None = None,
+                 timeout_ms: float | None = None, wait_s: float = 60.0):
+        return self.generate_ex(prompt, max_new_tokens=max_new_tokens,
+                                temperature=temperature, seed=seed,
+                                timeout_ms=timeout_ms, wait_s=wait_s)[0]
+
+    def generate_ex(self, prompt, max_new_tokens: int | None = None,
+                    temperature: float | None = None,
+                    seed: int | None = None,
+                    timeout_ms: float | None = None, wait_s: float = 60.0,
+                    request_id: str | None = None):
+        """``(tokens, meta)``, the generate twin of ``predict_ex``."""
+        if self.generate_batcher is None:
+            raise ValueError("this server's model does not support generate "
+                             "(token decode serves --model lm only)")
+        n = (self.default_max_new_tokens if max_new_tokens is None
+             else int(max_new_tokens))
+        if self.max_new_tokens_cap is not None \
+                and n > self.max_new_tokens_cap:
+            raise ValueError(f"max_new_tokens={n} exceeds the server cap "
+                             f"({self.max_new_tokens_cap})")
+        t = (self.default_temperature if temperature is None
+             else float(temperature))
+        fut = self.generate_batcher.submit(
+            np.asarray(prompt, dtype=np.int32), timeout_ms=timeout_ms,
+            request_id=request_id, max_new_tokens=n, temperature=t,
+            seed=None if seed is None else int(seed))
+        out = _result_with_id(fut, wait_s)
+        return out, {"request_id": fut.request_id}
+
 
 def make_predict_runner(engine: InferenceEngine):
     """Batcher runner for the predict route: stack the per-request
@@ -74,6 +122,33 @@ def make_predict_runner(engine: InferenceEngine):
         return [out[i] for i in range(len(payloads))]
 
     return runner
+
+
+def make_generate_runner(engine: InferenceEngine):
+    """Batcher runner for the generate route: the requests of one group
+    (``generate_group_key``) share their prompt length and decode
+    options, so one engine call serves the whole microbatch."""
+
+    def runner(payloads, opts_list):
+        o = opts_list[0]
+        out = engine.generate(np.stack(payloads),
+                              max_new_tokens=o.get("max_new_tokens", 16),
+                              temperature=o.get("temperature", 0.0),
+                              seed=o.get("seed"))
+        return [out["tokens"][i] for i in range(len(payloads))]
+
+    return runner
+
+
+def generate_group_key(payload, opts):
+    """Decode requests batch together only when they share the prompt
+    length and the decode options. A request with an explicit seed
+    batches alone: its batchmates (and so the bucket) would otherwise
+    change its sampled tokens; alone it repeats exactly."""
+    if opts.get("seed") is not None:
+        return object()  # equal only to itself
+    return (len(payload), opts.get("max_new_tokens", 16),
+            opts.get("temperature", 0.0))
 
 
 def predict_group_key(payload, opts):
@@ -174,6 +249,14 @@ class _Handler(BaseHTTPRequestHandler):
                     timeout_ms=req.get("timeout_ms"), request_id=rid)
                 self._send(200, {"outputs": np.asarray(out).tolist(),
                                  **meta})
+            elif self.path == "/v1/generate":
+                toks, meta = srv.client.generate_ex(
+                    req["prompt"], max_new_tokens=req.get("max_new_tokens"),
+                    temperature=req.get("temperature"),
+                    seed=req.get("seed"), timeout_ms=req.get("timeout_ms"),
+                    request_id=rid)
+                self._send(200, {"tokens": np.asarray(toks).tolist(),
+                                 **meta})
             else:
                 self._send(404, {"error": f"no route {self.path}"})
         except RejectedError as e:
@@ -218,6 +301,8 @@ class InferenceServer:
     def _batchers(self):
         if self.client.predict_batcher is not None:
             yield "predict", self.client.predict_batcher
+        if self.client.generate_batcher is not None:
+            yield "generate", self.client.generate_batcher
 
     def healthz(self) -> dict:
         """Liveness (every batcher still has a worker), the served params

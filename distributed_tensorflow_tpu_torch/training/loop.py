@@ -103,7 +103,8 @@ from distributed_tensorflow_tpu_torch.utils.telemetry import StepTimer
 class TrainResult:
     """What a run ends with. ``images_per_sec`` covers the steps after the
     first (warm-up) step or chunk up to the end of the loop, the device
-    drained, over the global batch of all ``n_chips`` ranks;
+    drained, over the global batch of all ``n_chips`` ranks (for the LM
+    an "image" is one sequence: times ``seq_len`` for tokens/s);
     ``device_busy_share`` is the profiled window's (``--profile_dir``),
     None without one or when the trace holds no device time."""
 
@@ -116,30 +117,44 @@ class TrainResult:
     n_chips: int = 1
 
 
-_PORTED_MODELS = ("deep_cnn", "mlp", "resnet", "resnet20", "resnet32")
-
-
 def build_model_for(FLAGS, meta: dict):
-    """The model the flags describe, for a dataset with ``meta``'s image
-    size, channels and classes: ``deep_cnn`` (``--pallas`` runs its wd1
-    layer through the CUDA kernel), ``mlp`` (``--hidden_units`` wide) or
-    a CIFAR ResNet. The token models are not ported."""
-    if meta.get("kind") == "lm" or FLAGS.model not in _PORTED_MODELS:
-        raise NotImplementedError(
-            f"--model {FLAGS.model} (dataset kind {meta.get('kind', 'image')})"
-            f" is not yet ported to distributed_tensorflow_tpu_torch; "
-            f"{', '.join(_PORTED_MODELS)} are")
+    """The model the flags describe, for a dataset with ``meta``'s shape:
+    ``deep_cnn`` (``--pallas`` runs its wd1 layer through the CUDA
+    kernel), ``mlp`` (``--hidden_units`` wide), a CIFAR ResNet, the
+    row-sequence ``transformer``, or, for token data (``--dataset lm``)
+    and only for it, the causal ``lm`` (``--attn_block``, ``--ce_block``
+    and ``--remat`` shape its memory)."""
+    compute_dtype = torch.bfloat16 if FLAGS.bf16 else None
+    if meta.get("kind") == "lm":
+        # token data feeds only the causal LM, and the LM only token data
+        if FLAGS.model != "lm":
+            raise ValueError(
+                f"--dataset lm produces token sequences; --model "
+                f"{FLAGS.model!r} is an image model. Use --model lm.")
+        return get_model(
+            "lm", vocab_size=meta["vocab_size"], seq_len=meta["seq_len"],
+            d_model=FLAGS.d_model, num_heads=FLAGS.num_heads,
+            num_blocks=FLAGS.num_blocks, compute_dtype=compute_dtype,
+            attn_block=FLAGS.attn_block if FLAGS.attn_block > 0 else None,
+            remat=bool(FLAGS.remat),
+            ce_block=FLAGS.ce_block if FLAGS.ce_block > 0 else None)
+    if FLAGS.model == "lm":
+        raise ValueError("--model lm consumes token sequences; use "
+                         "--dataset lm")
     kwargs = {}
     if FLAGS.model == "deep_cnn":
         kwargs["use_pallas"] = bool(FLAGS.pallas)
     if FLAGS.model == "mlp":
         kwargs["hidden_units"] = FLAGS.hidden_units
+    if FLAGS.model == "transformer":
+        kwargs.update(d_model=FLAGS.d_model, num_heads=FLAGS.num_heads,
+                      num_blocks=FLAGS.num_blocks, remat=bool(FLAGS.remat))
     return get_model(
         FLAGS.model,
         image_size=meta["image_size"],
         channels=meta["channels"],
         num_classes=meta["num_classes"],
-        compute_dtype=torch.bfloat16 if FLAGS.bf16 else None,
+        compute_dtype=compute_dtype,
         **kwargs,
     )
 
@@ -150,6 +165,9 @@ def augment_for(FLAGS, meta: dict):
     3-channel natural images (a mirrored digit is another glyph)."""
     if not FLAGS.augment:
         return None
+    if meta.get("kind") == "lm":
+        raise ValueError("--augment crops/flips images; token sequences "
+                         "(--dataset lm) have no image layout to augment")
     return make_augment(meta, pad=FLAGS.augment_pad,
                         flip=meta["channels"] == 3)
 
@@ -360,6 +378,12 @@ def _zero_fns(FLAGS, model, opt, mesh, level: int, accum: int, augment):
 
 def _train_once(FLAGS, mode: str = "local") -> TrainResult:
     level = FLAGS.zero
+    if FLAGS.dataset == "lm" and (FLAGS.device_data or level):
+        what = "--device_data" if FLAGS.device_data else f"--zero={level}"
+        raise NotImplementedError(
+            f"--dataset lm with {what} is not yet ported to "
+            f"distributed_tensorflow_tpu_torch (ROADMAP queue 1); train the "
+            f"LM host-fed, local or --mode sync")
     if level and mode != "sync":
         # a --mode=auto run of one worker lands here as "local"
         raise ValueError(
@@ -373,7 +397,8 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
     data_seed = FLAGS.seed + (mesh.rank if n_chips > 1 else 0)
     ds = read_data_sets(FLAGS.data_dir, one_hot=True, dataset=FLAGS.dataset,
                         seed=data_seed,
-                        validation_size=FLAGS.validation_size)
+                        validation_size=FLAGS.validation_size,
+                        seq_len=FLAGS.seq_len, vocab_size=FLAGS.vocab_size)
     model = build_model_for(FLAGS, ds.meta)
     opt = get_optimizer(FLAGS.optimizer, schedule_from_flags(FLAGS),
                         weight_decay=FLAGS.weight_decay)
@@ -666,7 +691,8 @@ def evaluate_only(FLAGS) -> dict[str, float]:
         raise FileNotFoundError(
             f"--eval_only: no checkpoint found in --logdir={FLAGS.logdir!r}")
     ds = read_data_sets(FLAGS.data_dir, one_hot=True, dataset=FLAGS.dataset,
-                        seed=FLAGS.seed)
+                        seed=FLAGS.seed, seq_len=FLAGS.seq_len,
+                        vocab_size=FLAGS.vocab_size)
     model = build_model_for(FLAGS, ds.meta).to(device)
     template = {"params": params_of(model), "step": 0}
     model_state = state_of(model)
@@ -681,7 +707,7 @@ def evaluate_only(FLAGS) -> dict[str, float]:
         template["model_state"] = model_state
     blob, step, _ = restore_with_fallback(FLAGS.logdir, template)
     _adopt(template, blob)
-    m = evaluate(model, ds.test, batch_size=_eval_batch_for(ds.meta),
+    m = evaluate(model, ds.test, batch_size=_eval_batch_for(model, ds.meta),
                  model_state=model_state)
     print(f"step: {step} test accuracy: {m['accuracy']} "
           f"test loss: {m['loss']}")
@@ -691,8 +717,13 @@ def evaluate_only(FLAGS) -> dict[str, float]:
     return m
 
 
-def _eval_batch_for(meta: dict) -> int:
-    """Full-split evaluation batch size: 1000 examples for images."""
+def _eval_batch_for(model, meta: dict) -> int:
+    """Full-split evaluation batch size: 1000 examples for images; for
+    token sequences as many as keep a batch near 2**18 tokens (1000
+    sequences of 4k tokens would be gigabytes of activations and
+    logits)."""
+    if meta.get("kind") == "lm":
+        return max(1, (1 << 18) // int(model.seq_len))
     return 1000
 
 
@@ -720,7 +751,7 @@ def _periodic_test_eval(FLAGS, sv, model, ds, logger):
             return
         m = evaluate(model, split,
                      model_state=state.model_state,
-                     batch_size=_eval_batch_for(ds.meta))
+                     batch_size=_eval_batch_for(model, ds.meta))
         if not use_validation:
             # the end-of-run eval may reuse a result on the test split
             box["last"] = (step, m)
@@ -752,7 +783,7 @@ def _final_test_eval(FLAGS, sv, periodic_eval, model, state, ds, logger,
     else:
         test_metrics = evaluate(model, ds.test,
                                 model_state=state.model_state,
-                                batch_size=_eval_batch_for(ds.meta))
+                                batch_size=_eval_batch_for(model, ds.meta))
         logger.scalars(step, {"test_accuracy": test_metrics["accuracy"],
                               "test_loss": test_metrics["loss"]})
     print("test accuracy: ", test_metrics["accuracy"],

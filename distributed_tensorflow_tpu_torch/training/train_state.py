@@ -284,7 +284,9 @@ def _check_model_state(model, model_state) -> None:
 def loss_and_metrics(model, batch, *, keep_prob=1.0, rng=None,
                      train=False, model_state=()):
     """(loss, {"metrics": {"loss", "accuracy"}, "model_state": ...}) for
-    one batch through ``model``'s current parameters. ``rng`` is a
+    one batch through ``model``'s current parameters; a model with
+    ``wants_loss_hook`` computes both through its ``loss_with_metrics``
+    (the LM with ``ce_block``). ``rng`` is a
     dropout seed (``dropout_seed``), a ``torch.Generator`` seeded with
     one, or None for no dropout. A stateful model normalizes by the batch
     in train mode, moving ``model_state`` (its buffers) in place, and by
@@ -294,6 +296,15 @@ def loss_and_metrics(model, batch, *, keep_prob=1.0, rng=None,
     generator = rng
     if rng is not None and not isinstance(rng, torch.Generator):
         generator = torch.Generator(device=x.device).manual_seed(rng)
+    if getattr(model, "wants_loss_hook", False):
+        # a model that owns its loss (the LM's streamed CE head, which
+        # never builds the (B, S, V) logits): one hook for train, eval
+        # and evaluate()
+        loss, metrics = model.loss_with_metrics(
+            x, y, keep_prob=keep_prob, generator=generator, train=train)
+        return loss, {"metrics": {"loss": loss.detach(),
+                                  "accuracy": metrics["accuracy"]},
+                      "model_state": model_state}
     logits = model(x, keep_prob=keep_prob, generator=generator, train=train)
     loss = nn.softmax_cross_entropy(logits, y)
     acc = nn.accuracy(logits, y)

@@ -159,7 +159,10 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
 def tree_from_named(named, fn=lambda t: t) -> dict:
     """(dotted name, tensor) pairs, such as ``named_parameters()`` ->
     the nested tree ("weights.wd1" -> ``{"weights": {"wd1": ...}}``) of
-    ``fn`` of each tensor."""
+    ``fn`` of each tensor. A node whose names are 0..n-1 (an
+    ``nn.ModuleList``'s, "blocks.0.qkv") becomes a list, as the JAX
+    tree holds it, so the path keys ("blocks/0/qkv") and the leaf order
+    are the JAX package's."""
     tree: dict = {}
     for name, t in named:
         *parents, leaf = name.split(".")
@@ -167,7 +170,16 @@ def tree_from_named(named, fn=lambda t: t) -> dict:
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = fn(t)
-    return tree
+    return _lists_for_indices(tree)
+
+
+def _lists_for_indices(node):
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists_for_indices(v) for k, v in node.items()}
+    if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+        return [node[str(i)] for i in range(len(node))]
+    return node
 
 
 def _numpy_f32(t: torch.Tensor) -> np.ndarray:

@@ -102,8 +102,11 @@ def test_labels_out_of_range_are_refused():
 
 
 def test_other_datasets_are_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdata.read_data_sets(str(tmp_path), dataset="lm")
+    # "lm" is ported now (tests/test_torch_lm.py holds it to JAX); an
+    # unknown name still raises
+    ds = tdata.read_data_sets(str(tmp_path), dataset="lm", seq_len=8,
+                              vocab_size=5)
+    assert ds.meta["kind"] == "lm" and ds.train.images.shape[1] == 8
     with pytest.raises(ValueError, match="unknown dataset"):
         tdata.read_data_sets(str(tmp_path), dataset="imagenet")
 

@@ -231,16 +231,25 @@ def test_build_model_for_builds_the_ported_models(port_flags):
 
 
 def test_models_that_are_not_ported_raise(port_flags):
+    from distributed_tensorflow_tpu_torch.models import (
+        MiniTransformer,
+        get_model,
+    )
     from distributed_tensorflow_tpu_torch.training.loop import build_model_for
 
+    # the transformer families are ported now; their sequence-parallel
+    # and MoE forms are not, and token data still needs --model lm
     cifar = {"image_size": 32, "channels": 3, "num_classes": 10}
     port_flags._parse(["--model=transformer"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model_for(port_flags, cifar)
+    assert isinstance(build_model_for(port_flags, cifar), MiniTransformer)
     port_flags._reset()
     port_flags._parse([])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="Use --model lm"):
         build_model_for(port_flags, {"kind": "lm"})
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_model("lm", moe_experts=4)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_model("transformer", seq_axis="model")
 
 
 def test_final_save_after_a_failed_eval_holds_one_step(
