@@ -41,7 +41,7 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    around a CUDA graph of many launches over rotating buffers larger than
    L2, beside the least time the card could take;
 7. the ``kernels`` JSON line, the card line, and ``{"ok": true, ...}`` last,
-   after phase 12;
+   after phase 13;
 8. device-resident sync DP: a one-rank NCCL group on
    ``tcp://127.0.0.1:<free port>``, then ``train(FLAGS, mode="sync")`` with
    ``--device_data --pallas`` in f32 and in bf16 (each step one CUDA graph
@@ -127,7 +127,32 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    are bitwise equal, a 400 for an out-of-vocabulary prompt, a seeded
    sampled request that repeats, request p50/p99, and the prefill and
    per-step decode times; (f) ``fused_dense_relu`` must not launch over
-   (b)-(e).
+   (b)-(e);
+13. the LM on every train path the JAX package gives it on one chip, on a
+   fresh one-rank NCCL group through ``train(FLAGS, mode="sync")``: (a)
+   one Switch MoE layer (``ops/moe.py``) at the MoE LM's shapes (T = 16
+   x 128 tokens, d 128, 8 experts, m 512, cf 1.25, inputs whose top-2
+   router probabilities are at least 1e-3 apart) on the card against the
+   CPU, expert ids and ``dropped_frac`` equal, the output, ``lb_loss``
+   and the gradients of h and every leaf within 1e-5 (f32, TF32 off) and
+   2e-2 (bf16) of each one's scale, then the layer's time and its
+   dispatch and combine einsums against its expert GEMMs (CUDA events);
+   (b) the repo's MoE LM (``bench.py``'s ``ep_device_phase``: vocab 64,
+   seq 128, d 128, 4 heads, 2 blocks, 8 experts, bf16, adam 1e-3, batch
+   16, 2048 train sequences, chunk 10; the test split cut to 16
+   sequences, one routing group) host-fed and ``--device_data`` (a CUDA
+   graph a step), 100 steps each with the loss falling and ``moe_lb``
+   >= 0.99; 20 replays against 20 eager device steps, metrics and state
+   bitwise; the device run's checkpoint restored and resumed; the two
+   paths' tokens/s/GPU in turns (host, device, device, host), their busy
+   shares and top kernels; (c) ``lm_4k`` (phase 12's configuration)
+   ``--device_data`` for 20 steps beside 12b's host-fed run, and the
+   recall recipe device-resident to the JAX package's accuracy less 0.05
+   with both paths' rates in turns; (d) ``--zero 3 --zero_overlap
+   --device_data`` on the MoE LM: 20 replays bitwise equal to the
+   replicated step's (one rank: the collectives are copies), 100 steps
+   through ``train``, and its final checkpoint resumed by a replicated
+   run; (e) ``fused_dense_relu`` must not launch over (a)-(d).
 
 Any failed phase raises, so the script exits non-zero. f32 runs in full
 f32: TF32 is turned off for cuDNN and cuBLAS.
@@ -182,6 +207,7 @@ from distributed_tensorflow_tpu_torch.models import (
 from distributed_tensorflow_tpu_torch.ops.augment import make_augment
 from distributed_tensorflow_tpu_torch.ops import _build, fused_dense
 from distributed_tensorflow_tpu_torch.ops import nn as ops_nn
+from distributed_tensorflow_tpu_torch.ops.moe import switch_moe
 from distributed_tensorflow_tpu_torch.ops.attention import (
     blockwise_attention,
     multi_head_attention,
@@ -336,6 +362,35 @@ RECALL_JAX = {"f32": 0.33453369140625, "bf16": 0.332275390625}
 # the full-prefix recompute within this share of the logits' scale
 LM_SERVE_REQUESTS, LM_PROMPT, LM_NEW = 32, 64, 32
 LM_SERVE_TOL = {"f32": 1e-4, "bf16": 2e-2}
+
+# phase 13: the LM on the device-resident (graph-replayed) and ZeRO
+# paths. The MoE LM is bench.py's ep_device_phase configuration
+# (bench.py:126-134, 613-616; the JAX package's own MoE config): vocab
+# 64, seq 128, d 128, 4 heads, 2 blocks, 8 experts, bf16, adam 1e-3,
+# batch 16, a split of 2048 sequences, chunk 10. Its test split is cut to
+# 16 sequences: the LM's eval batch of 2**18 tokens would be ONE routing
+# group of 65,536 tokens at the default 512, whose (T, E, C) dispatch
+# tensor holds 5.4e9 entries (the JAX package has the same rule); 16
+# sequences are one group of 2048 tokens, a training batch's
+MOE_ARGS = ("--model", "lm", "--dataset", "lm", "--seq_len", "128",
+            "--vocab_size", "64", "--d_model", "128", "--num_heads", "4",
+            "--num_blocks", "2", "--moe_experts", "8", "--batch_size", "16",
+            "--keep_prob", "1.0")
+MOE_KW = {"vocab_size": 64, "seq_len": 128, "d_model": 128, "num_heads": 4,
+          "num_blocks": 2, "moe_experts": 8}
+MOE_SPLIT, MOE_BATCH, MOE_CHUNK = (2048, 16), 16, 10
+MOE_STEPS, MOE_RESUME, MOE_TIME_STEPS, MOE_PROFILE = 100, 10, 200, 10
+MOE_LB_MIN = 0.99  # the JAX test's floor for moe_lb (tests/test_moe.py)
+# 13a: one Switch layer at the config's shapes (T = 16 x 128 tokens, d
+# 128, E 8, m 512, cf 1.25) on the card against the CPU: f32 (TF32 off)
+# a reordered float32 sum, within 1e-5 of each output's scale; bf16
+# rounds the einsums' outputs in cuBLAS and on the CPU, 2e-2
+MOE_LAYER = {"batch": 16, "seq": 128, "d": 128, "experts": 8, "cf": 1.25}
+MOE_LAYER_TOL = {"f32": 1e-5, "bf16": 2e-2}
+MOE_MARGIN = 1e-3  # every token's top-2 router probabilities this far apart
+# 13c: lm_4k device-resident in chunks of 5 (the first chunk, the
+# warm-up and the capture, stays out of the window of LM_STEPS)
+LM4K_CHUNK = 5
 
 N_REQUESTS, N_THREADS = 64, 8
 KERNEL_SRC = "distributed_tensorflow_tpu_torch/ops/csrc/fused_dense_relu.cu"
@@ -2201,6 +2256,403 @@ def phase_lm(card: str, work: str, data_dir: str) -> dict:
             "serve": served, "launches": launches}
 
 
+# --------------------------------------------- phase 13: the LM, complete
+
+MOE_LEAVES = ("router", "w1", "b1", "w2", "b2")
+
+
+def lm_sync_args(port: int) -> tuple[str, ...]:
+    """Rank 0 of phase 13's one-rank group, served on ``port``."""
+    return ("--mode", "sync", "--worker_hosts", f"127.0.0.1:{port}",
+            "--task_index", "0")
+
+
+def moe_layer_inputs(seed: int):
+    """(h (B, S, d), params, cotangent) of one Switch layer from numpy,
+    every token's top-2 router probabilities at least ``MOE_MARGIN``
+    apart, so the card and the CPU must route every token alike."""
+    c = MOE_LAYER
+    d, e, m = c["d"], c["experts"], 4 * c["d"]
+    rng = np.random.default_rng(seed)
+    params = {"router": rng.normal(0, d ** -0.5, (d, e)),
+              "w1": rng.normal(0, d ** -0.5, (e, d, m)),
+              "b1": rng.normal(0, 0.1, (e, m)),
+              "w2": rng.normal(0, m ** -0.5, (e, m, d)),
+              "b2": rng.normal(0, 0.1, (e, d))}
+    h = rng.normal(0, 1, (c["batch"] * c["seq"], d))
+    for _ in range(100):
+        z = h @ params["router"]
+        p = np.exp(z - z.max(-1, keepdims=True))
+        p /= p.sum(-1, keepdims=True)
+        top2 = np.sort(p, -1)[:, -2:]
+        close = top2[:, 1] - top2[:, 0] < MOE_MARGIN
+        if not close.any():
+            break
+        h[close] = rng.normal(0, 1, (int(close.sum()), d))
+    else:
+        raise AssertionError("could not draw well-separated routes")
+    shape = (c["batch"], c["seq"], d)
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    return (as_t(h.reshape(shape)), {k: as_t(v) for k, v in params.items()},
+            as_t(rng.normal(0, 1, shape)))
+
+
+def moe_layer_run(h, params, ct, tag: str, device: str) -> dict:
+    """``switch_moe`` on ``device``: the output, ``lb_loss``,
+    ``dropped_frac``, the expert ids and the gradients of sum(y * ct) +
+    0.3 lb_loss with respect to h and every leaf, on the CPU."""
+    cd = torch.bfloat16 if tag == "bf16" else None
+    th = h.to(device).requires_grad_()
+    tp = {k: v.to(device).requires_grad_() for k, v in params.items()}
+    y, aux = switch_moe(th, tp, capacity_factor=MOE_LAYER["cf"],
+                        compute_dtype=cd)
+    obj = (y.float() * ct.to(device)).sum() + 0.3 * aux["lb_loss"]
+    grads = torch.autograd.grad(obj, [th] + [tp[k] for k in MOE_LEAVES])
+    with torch.no_grad():
+        ids = torch.softmax(th.reshape(-1, th.shape[-1]).float()
+                            @ tp["router"].float(), -1).argmax(-1)
+    out = {"y": y, "lb_loss": aux["lb_loss"], "dh": grads[0],
+           "dropped_frac": aux["dropped_frac"], "ids": ids}
+    out.update({f"d{k}": g for k, g in zip(MOE_LEAVES, grads[1:])})
+    return {k: v.detach().float().cpu() if k != "ids" else v.cpu()
+            for k, v in out.items()}
+
+
+def phase_moe_layer(card: str) -> dict:
+    """13a: ``switch_moe`` on the card against its CPU result at the MoE
+    LM's layer shapes, in f32 (TF32 off) and bf16; then the layer's time
+    and its einsums' times in bf16 (CUDA events)."""
+    h, params, ct = moe_layer_inputs(13)
+    c = MOE_LAYER
+    t, d, e, m = c["batch"] * c["seq"], c["d"], c["experts"], 4 * c["d"]
+    out = {}
+    for tag in DTYPES:
+        want = moe_layer_run(h, params, ct, tag, "cpu")
+        got = moe_layer_run(h, params, ct, tag, "cuda")
+        same_ids = bool(torch.equal(got["ids"], want["ids"]))
+        dropped = (float(got["dropped_frac"]), float(want["dropped_frac"]))
+        errs = {k: rel_err(got[k], want[k]) for k in got
+                if k not in ("ids", "dropped_frac")}
+        tol = MOE_LAYER_TOL[tag]
+        say("moe", f"{tag}: switch_moe on the card vs the CPU, T {t}, d {d}, "
+                   f"E {e}, m {m}, cf {c['cf']}: expert ids equal "
+                   f"{same_ids}; dropped_frac {dropped[0]:.6f} (CPU "
+                   f"{dropped[1]:.6f}); errors in units of each output's "
+                   f"max " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       errs.items())
+                   + f" (tolerance {tol})")
+        if not (same_ids and dropped[0] == dropped[1]
+                and max(errs.values()) <= tol):
+            raise AssertionError(f"{tag}: switch_moe on the card disagrees "
+                                 f"with the CPU: ids {same_ids}, dropped "
+                                 f"{dropped}, {errs}")
+        out[tag] = {"max_rel_err": max(errs.values()),
+                    "dropped_frac": dropped[0]}
+    # the layer in bf16, and the dispatch/combine einsums against the
+    # expert GEMMs at its shapes (C = 320)
+    bf = torch.bfloat16
+    th, tp = h.cuda(), {k: v.cuda() for k, v in params.items()}
+
+    def layer():
+        x = th.clone().requires_grad_()
+        y, aux = switch_moe(x, {k: v.requires_grad_() for k, v in tp.items()},
+                            capacity_factor=c["cf"], compute_dtype=bf)
+        return torch.autograd.grad(y.float().sum() + aux["lb_loss"], x)
+
+    cap = math.ceil(c["cf"] * t / e)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=bf)
+
+    slot, hf, xe, he, ye = (rnd(t, e, cap), rnd(t, d), rnd(e, cap, d),
+                            rnd(e, cap, m), rnd(e, cap, d))
+    w1, w2 = rnd(e, d, m), rnd(e, m, d)
+    times = {
+        "layer_fwd_bwd_ms": cuda_ms(layer, reps=20),
+        "dispatch_ms": cuda_ms(lambda: torch.einsum("tec,td->ecd", slot, hf),
+                               reps=50),
+        "expert_gemms_ms": cuda_ms(lambda: (
+            torch.einsum("ecd,edm->ecm", xe, w1),
+            torch.einsum("ecm,emd->ecd", he, w2)), reps=50),
+        "combine_ms": cuda_ms(lambda: torch.einsum("tec,ecd->td", slot, ye),
+                              reps=50)}
+    flops = {"dispatch_ms": 2 * t * e * cap * d,
+             "expert_gemms_ms": 4 * e * cap * d * m,
+             "combine_ms": 2 * t * e * cap * d}
+    say("times", f"bf16 switch_moe layer (T {t}, d {d}, E {e}, C {cap}, m "
+                 f"{m}): forward+backward {times['layer_fwd_bwd_ms']:.4f} ms; "
+                 f"forward einsums: " + ", ".join(
+                     f"{k.removesuffix('_ms')} {times[k]:.4f} ms "
+                     f"({f / 1e9:.3f} GFLOP, "
+                     f"{f / times[k] / 1e9:.1f} TFLOP/s)"
+                     for k, f in flops.items()) + f" (CUDA events) | {card}")
+    out["times"] = times
+    return out
+
+
+def moe_replays(mesh, data) -> dict:
+    """13b, 13d: 20 device steps of the MoE LM replayed from a CUDA graph
+    against 20 eager device steps, and 20 replays of ``--zero 3
+    --zero_overlap`` against the replicated replays, each from the
+    seed-0 init on the same draws: the metrics (loss, accuracy, moe_lb)
+    and the standard-layout state, bitwise."""
+    runs = {}
+    for name in ("graph", "eager", "zero 3 overlap"):
+        model = TransformerLM(**MOE_KW, compute_dtype=torch.bfloat16)
+        opt = train_state.adam(1e-3)
+        state = train_state.create_train_state(model, opt, seed=0,
+                                               device="cuda")
+        state = state._replace(step=state.step.cuda())
+        if name == "zero 3 overlap":
+            state = shard_state_zero(state, mesh, 3)
+            step_fn = make_zero_device_train_step(
+                model, opt, mesh, 3, data, MOE_BATCH, keep_prob=1.0,
+                overlap=True)
+        else:
+            step_fn = make_device_dp_train_step(
+                model, opt, mesh, data, MOE_BATCH, keep_prob=1.0,
+                graph=name == "graph")
+        metrics = []
+        for s in range(TRAJ_STEPS):
+            state, m = step_fn(state, s, 1)
+            metrics.append({k: float(v) for k, v in m.items()})
+        if name == "zero 3 overlap":
+            state = fetch_state_zero(state, model, mesh, 3)
+        runs[name] = (metrics, flatten_pytree(state))
+
+    def same(a, b):
+        (ma, fa), (mb, fb) = runs[a], runs[b]
+        return ma == mb and sorted(fa) == sorted(fb) and all(
+            np.array_equal(fa[k], fb[k]) for k in fa)
+
+    out = {"graph_vs_eager": same("graph", "eager"),
+           "zero_vs_replicated": same("zero 3 overlap", "graph")}
+    first, last = runs["graph"][0][0], runs["graph"][0][-1]
+    say("moe", f"bf16 MoE LM: {TRAJ_STEPS} device steps replayed from a CUDA "
+               f"graph vs eager, and --zero 3 --zero_overlap replays vs the "
+               f"replicated replays: loss {first['loss']:.6f} -> "
+               f"{last['loss']:.6f}, moe_lb {last['moe_lb']:.6f}; metrics "
+               f"and state (params, adam slots, step) bitwise equal: {out}")
+    if not all(out.values()):
+        raise AssertionError(f"MoE LM replays differ: {out}")
+    return out
+
+
+def moe_run(work: str, data_dir: str, name: str, port: int, steps: int,
+            *extra: str) -> TrainRun:
+    """The MoE LM through ``train(FLAGS, mode="sync")`` in ``work/name``."""
+    return TrainRun(os.path.join(work, name), data_dir, "bf16", False,
+                    *MOE_ARGS, "--training_iter", str(steps),
+                    *lm_sync_args(port), *extra, mode="sync")
+
+
+def path_times(card: str, work: str, label: str, make_run, seq_len: int,
+               batch: int, steps: int, profile: int, first: dict) -> dict:
+    """tokens/s/GPU of the host-fed and the device-resident path in turns
+    (host, device, device, host), ``make_run(path, name, steps, *extra)``
+    building each run in ``work/name``; then each path's busy share,
+    kernels and top kernels over ``profile`` steps (at least one chunk)
+    after its first ``first[path]`` steps (the first step or chunk carries
+    the one-time costs)."""
+    stem = label.replace(" ", "-")
+    rates = {"host": [], "device": []}
+    for i, path in enumerate(("host", "device", "device", "host")):
+        run = make_run(path, f"{stem}-turn-{i}", steps, "--display_step",
+                       str(10 * steps), "--test_eval", "false")
+        rates[path].append(run.result.images_per_sec_per_chip * seq_len)
+    out = {}
+    for path in ("host", "device"):
+        trace = os.path.join(work, f"{stem}-prof-{path}-trace")
+        # the loop traces whole chunks: at least one on the device path
+        window = max(profile, first[path]) if path == "device" else profile
+        run = make_run(path, f"{stem}-prof-{path}", first[path] + window,
+                       "--display_step", str(10 * steps), "--test_eval",
+                       "false", "--profile_dir", trace, "--profile_steps",
+                       str(profile))
+        tk = trace_kernels(os.path.join(trace, "trace.json"), window)
+        busy = run.result.device_busy_share
+        per = rates[path]
+        mean = sum(per) / len(per)
+        out[path] = {"tokens_per_sec": per, "ms_per_step":
+                     batch * seq_len * 1e3 / mean, "busy_share": busy, **tk}
+        name = "host-fed" if path == "host" else "device-resident"
+        say("times", f"{label} {name}: "
+                     f"{', '.join(f'{r:.1f}' for r in per)} tokens/s/GPU "
+                     f"(mean {mean:.1f}, {out[path]['ms_per_step']:.4f} "
+                     f"ms/step, batch {batch} x {seq_len}); busy share "
+                     f"{'not measured' if busy is None else f'{busy:.4f}'}, "
+                     f"{tk['kernels_per_step']:.1f} kernels, "
+                     f"{tk['busy_us_per_step']:.1f} us busy and "
+                     f"{tk['idle_us_per_step']:.1f} us idle between kernels "
+                     f"per step over {window} steps (torch.profiler) | "
+                     f"{card}")
+        for kname, us in tk["top_us_per_step"]:
+            say("times", f"{label} {name} top kernel: {us:.1f} us/step "
+                         f"{kname}")
+    return out
+
+
+def phase_moe_lm(card: str, work: str, data_dir: str, port: int,
+                 mesh) -> dict:
+    """13b, 13d: the MoE LM host-fed and device-resident through
+    ``train``, its checkpoint restored and resumed, the ZeRO run resumed
+    by a replicated one, and the two paths' rates in turns."""
+    saved = datasets.LM_TRAIN, datasets.LM_TEST
+    datasets.LM_TRAIN, datasets.LM_TEST = MOE_SPLIT
+    try:
+        split = read_data_sets(data_dir, dataset="lm",
+                               seq_len=MOE_KW["seq_len"],
+                               vocab_size=MOE_KW["vocab_size"]).train
+        data = put_device_data(split, "cuda")
+        out = {"replays": moe_replays(mesh, data)}
+        del data
+        dev = ("--device_data", "--device_chunk", str(MOE_CHUNK))
+        zero3 = ("--zero", "3", "--zero_overlap")
+        for path, extra in (("host", ()), ("device", dev),
+                            ("zero", dev + zero3)):
+            run = moe_run(work, data_dir, f"moe-{path}", port, MOE_STEPS,
+                          "--display_step", str(MOE_CHUNK), *extra)
+            losses = run.records("mini_batch_loss")
+            seq = [losses[s] for s in sorted(losses)]
+            lb = run.result.train_metrics["moe_lb"]
+            acc = run.result.test_metrics["accuracy"]
+            say("moe", f"bf16 MoE LM {path} ({' '.join(extra) or 'host-fed'})"
+                       f": {MOE_STEPS} steps, display loss "
+                       f"{[round(x, 4) for x in seq]}; moe_lb {lb:.5f} (need "
+                       f">= {MOE_LB_MIN}); test accuracy {acc:.4f} over "
+                       f"{MOE_SPLIT[1]} sequences")
+            if run.result.final_step != MOE_STEPS or not (
+                    all(math.isfinite(x) for x in seq) and seq[-1] < seq[0]
+                    and lb >= MOE_LB_MIN):
+                raise AssertionError(f"MoE LM {path}: step "
+                                     f"{run.result.final_step}, losses {seq}, "
+                                     f"moe_lb {lb}")
+            out[path] = {"losses": seq, "moe_lb": lb, "accuracy": acc}
+        # the device run's checkpoint restored and resumed by itself, the
+        # ZeRO run's by a replicated run
+        template = train_state.create_train_state(
+            TransformerLM(**MOE_KW, compute_dtype=torch.bfloat16),
+            train_state.adam(1e-3))
+        restored = restore_with_fallback(os.path.join(work, "moe-device"),
+                                         template)
+        shutil.copytree(os.path.join(work, "moe-zero"),
+                        os.path.join(work, "moe-zero-by-dp"))
+        stop = MOE_STEPS + MOE_RESUME
+        resumed = {}
+        for name in ("moe-device", "moe-zero-by-dp"):
+            again = moe_run(work, data_dir, name, port, stop, *dev)
+            resumed[name] = (again.records("recovery_restore_step").get(
+                MOE_STEPS), again.result.final_step)
+        say("moe", f"bf16 MoE LM: the device run's checkpoint restored at "
+                   f"step {restored and restored[1]}; resumed (from step, to "
+                   f"step): {resumed} (the ZeRO run's by a replicated run)")
+        if restored is None or restored[1] != MOE_STEPS or any(
+                r != (MOE_STEPS, stop) for r in resumed.values()):
+            raise AssertionError(f"MoE LM resume: {restored and restored[1]} "
+                                 f"{resumed}")
+
+        def make_run(path, name, steps, *extra):
+            return moe_run(work, data_dir, name, port, steps,
+                           *(dev if path == "device" else ()), *extra)
+
+        out["times"] = path_times(card, work, "bf16 MoE LM", make_run,
+                                  MOE_KW["seq_len"], MOE_BATCH,
+                                  MOE_TIME_STEPS, MOE_PROFILE,
+                                  {"host": 1, "device": MOE_CHUNK})
+    finally:
+        datasets.LM_TRAIN, datasets.LM_TEST = saved
+    return out
+
+
+def phase_lm_device(card: str, work: str, data_dir: str, port: int,
+                    host_4k: dict) -> dict:
+    """13c: lm_4k device-resident (the flash attention's Function inside
+    the captured step) beside phase 12b's host-fed run; the recall recipe
+    device-resident to the JAX package's accuracy less 0.05, and its two
+    paths' rates in turns (a dispatch-bound step)."""
+    out = {}
+    saved = datasets.LM_TRAIN, datasets.LM_TEST
+    datasets.LM_TRAIN, datasets.LM_TEST = LM_SPLIT
+    try:
+        args = (*lm_args(*LM_4K), "--attn_block", str(LM_ATTN_BLOCK),
+                "--batch_size", str(LM_4K_BATCH), "--keep_prob", "1.0",
+                "--test_eval", "false", "--display_step", "1000",
+                *lm_sync_args(port), "--device_data", "--device_chunk",
+                str(LM4K_CHUNK))
+        timed = TrainRun(os.path.join(work, "lm4k-dev"), data_dir, "bf16",
+                         False, "--training_iter", str(LM_STEPS), *args,
+                         mode="sync")
+        rate = timed.result.images_per_sec_per_chip * LM_4K[0]
+        loss0 = timed.records("mini_batch_loss")[0]
+        trace = os.path.join(work, "lm4k-dev-prof-trace")
+        prof = TrainRun(os.path.join(work, "lm4k-dev-prof"), data_dir,
+                        "bf16", False, "--training_iter",
+                        str(LM4K_CHUNK + LM_PROFILE_STEPS), *args,
+                        "--profile_dir", trace, "--profile_steps",
+                        str(LM_PROFILE_STEPS), mode="sync")
+        tk = trace_kernels(os.path.join(trace, "trace.json"),
+                           LM_PROFILE_STEPS)
+        busy = prof.result.device_busy_share
+        ms = LM_4K_BATCH * LM_4K[0] * 1e3 / rate
+        say("times", f"lm_4k bf16 flash device-resident (--device_data, "
+                     f"chunk {LM4K_CHUNK}, one CUDA graph a step): "
+                     f"{rate:.1f} tokens/s/GPU, {ms:.3f} ms/step over steps "
+                     f"{LM4K_CHUNK}-{LM_STEPS - 1}; step-0 loss {loss0:.5f};"
+                     f" busy share "
+                     f"{'not measured' if busy is None else f'{busy:.4f}'}, "
+                     f"{tk['kernels_per_step']:.1f} kernels, "
+                     f"{tk['idle_us_per_step']:.1f} us idle per step; host-fed"
+                     f" (12b) {host_4k['tokens_per_sec']:.1f} tokens/s/GPU, "
+                     f"{host_4k['ms_per_step']:.3f} ms/step, busy share "
+                     f"{host_4k['busy_share']} | {card}")
+        if timed.result.final_step != LM_STEPS or not math.isfinite(loss0):
+            raise AssertionError(f"lm_4k device-resident: step "
+                                 f"{timed.result.final_step}, loss {loss0}")
+        out["lm_4k"] = {"tokens_per_sec": rate, "ms_per_step": ms,
+                        "busy_share": busy, **tk}
+    finally:
+        datasets.LM_TRAIN, datasets.LM_TEST = saved
+
+    def make_run(path, name, steps, *extra):
+        return TrainRun(os.path.join(work, name), data_dir, "f32", False,
+                        *RECALL_ARGS, "--training_iter", str(steps),
+                        *lm_sync_args(port),
+                        *(("--device_data",) if path == "device" else ()),
+                        *extra, mode="sync")
+
+    learned = make_run("device", "recall-dev", RECALL_STEPS)
+    acc = learned.result.test_metrics["accuracy"]
+    need = max(RECALL_JAX["f32"] - 0.05, 3 / RECALL_VOCAB)
+    say("lm", f"f32 recall recipe device-resident ({RECALL_STEPS} steps, "
+              f"chunk 50): test accuracy {acc:.4f} (need >= {need:.4f})")
+    if learned.result.final_step != RECALL_STEPS or not acc >= need:
+        raise AssertionError(f"recall device-resident: accuracy {acc}")
+    out["recall"] = {"accuracy": acc, **path_times(
+        card, work, "f32 recall recipe", make_run, 32, 32, RECALL_STEPS, 10,
+        {"host": 1, "device": 50})}
+    return out
+
+
+def phase_lm_complete(card: str, work: str, data_dir: str, port: int,
+                      lm: dict) -> dict:
+    """Phase 13 on a one-rank NCCL group; ``fused_dense_relu`` must not
+    launch over (a)-(d) (13e)."""
+    t0 = time.perf_counter()
+    fused_dense.LAUNCHES = 0  # the paths' runs start here
+    mesh = make_mesh("cuda")
+    layer = phase_moe_layer(card)
+    moe = phase_moe_lm(card, work, data_dir, port, mesh)
+    device = phase_lm_device(card, work, data_dir, port, lm["train"]["lm_4k"])
+    launches = fused_dense.LAUNCHES  # ... and end here
+    say("lm", f"fused_dense_relu launches over phase 13's paths: {launches}; "
+              f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    if launches:
+        raise AssertionError("phase 13's paths launched fused_dense_relu")
+    return {"layer": layer, "moe": moe, "device": device,
+            "launches": launches}
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -2238,6 +2690,13 @@ def main() -> int:
         phase_ps_mirror_vs_full(work, data_dir)
         phase_ps_times(card, work, data_dir)
         lm = phase_lm(card, work, data_dir)
+        port = free_port()
+        maybe_initialize_distributed(
+            ClusterSpec({"worker": [f"127.0.0.1:{port}"]}), 0, "cuda")
+        try:
+            complete = phase_lm_complete(card, work, data_dir, port, lm)
+        finally:
+            dist.destroy_process_group()
     times = phase_times(card, served)
     kernels = []
     for tag in DTYPES:
@@ -2247,7 +2706,8 @@ def main() -> int:
                    "device_resident": resident[tag]["launches"],
                    "ps_worker0": ps[tag]["launches"],
                    "zero3_overlap": zeroed[tag]["launches"],
-                   "lm_train_and_serve": lm["launches"]}
+                   "lm_train_and_serve": lm["launches"],
+                   "lm_device_moe_zero": complete["launches"]}
         kernels.append({
             "name": f"fused_dense_relu[{tag}]", "route": "cuda",
             "variant": "tma", "source": KERNEL_SRC, "replaces": TPU_KERNEL,

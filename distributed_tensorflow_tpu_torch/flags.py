@@ -155,6 +155,19 @@ def define_flags():
     DEFINE_boolean("remat", False, "Recompute each transformer block in "
                    "the backward pass (torch.utils.checkpoint): activation "
                    "memory drops to one block's worth for one more forward")
+    DEFINE_integer("moe_experts", 0, "If > 0, the LM's MLPs become "
+                   "top-1 Switch mixture-of-experts layers with this "
+                   "many experts (ops/moe.py); the training loss adds "
+                   "--moe_aux times the load-balance term")
+    DEFINE_float("moe_capacity", 1.25, "Per-expert token capacity "
+                 "factor (tokens beyond ceil(cf*T/E) drop to the "
+                 "residual stream — Switch semantics)")
+    DEFINE_float("moe_aux", 0.01, "Load-balance auxiliary loss "
+                 "coefficient for --moe_experts")
+    DEFINE_boolean("expert_parallel", False, "Shard the MoE experts over "
+                   "the mesh's model axis (the JAX package's "
+                   "parallel/expert_parallel.py); not yet ported: the "
+                   "port's mesh has no model axis, so setting it raises")
     DEFINE_boolean("bf16", False, "Run matmuls/convs in bfloat16")
     DEFINE_boolean("pallas", False, "Run the deep_cnn wd1 layer through "
                    "the hand-written CUDA kernel (ops/fused_dense.py); the "
@@ -496,6 +509,13 @@ def _validate_zero_flags(values: dict):
             f"it or add --zero_overlap")
     if z == 0:
         return
+    if values.get("expert_parallel"):
+        raise ValueError(
+            f"--zero={z} with --expert_parallel is not supported: ZeRO "
+            f"shards the whole TrainState over the DATA axis while "
+            f"--expert_parallel shards MoE experts over the model axis — "
+            f"the two state layouts collide. Drop one (ZeRO-over-PP/EP is "
+            f"a future composition)")
     mode = values.get("mode") or "auto"
     if mode == "ps" or values.get("ps_hosts") or values.get("job_name"):
         raise ValueError(
@@ -555,3 +575,9 @@ def _validate_flags(values: dict):
              "must be >= 0 (0 = dense attention)")
     _require(values, "ce_block", lambda v: int(v) >= 0,
              "must be >= 0 (0 = dense loss head)")
+    _require(values, "moe_experts", lambda v: int(v) >= 0,
+             "must be >= 0 (0 = dense MLPs)")
+    _require(values, "moe_capacity", lambda v: float(v) > 0,
+             "must be > 0 (a per-expert capacity factor)")
+    _require(values, "moe_aux", lambda v: float(v) >= 0,
+             "must be >= 0 (the load-balance coefficient)")

@@ -7,12 +7,14 @@ The parameters keep the JAX tree's names and layouts, so ``state_dict``
 keys map one to one onto its path keys (``blocks.0.qkv`` <->
 ``blocks/0/qkv``): per pre-LN block ``ln1_g``, ``ln1_b``, ``qkv`` (d, 3,
 H, Dh), ``proj`` (H*Dh, d), ``ln2_g``, ``ln2_b``, ``mlp_in`` {w, b} and
-``mlp_out`` {w, b}. The block is one set of functions (``_attn_half_kv``,
-``_mlp_half``) that the training forward and the serving decode
-(``serving/decode.py``) both run.
+``mlp_out`` {w, b}; an MoE block (``moe_experts > 0``) has ``moe``
+{``router`` (d, E), ``w1`` (E, d, m), ``b1`` (E, m), ``w2`` (E, m, d),
+``b2`` (E, d)} in place of the two MLP layers (``ops/moe.py``). The block
+is one set of functions (``_attn_half_kv``, ``_mlp_half``) that the
+training forward and the serving decode (``serving/decode.py``) both run.
 
-Sequence parallelism (``seq_axis``, ring attention) and the MoE blocks
-(``moe_experts``) come with later slices and raise here.
+Sequence parallelism (``seq_axis``, ring attention) and expert
+parallelism (``moe_axis``) come with a later slice and raise here.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from distributed_tensorflow_tpu_torch.ops.attention import (
     blockwise_attention,
     multi_head_attention,
 )
+from distributed_tensorflow_tpu_torch.ops.moe import switch_moe
 
 
 def _layernorm(x, gain, bias, eps: float = 1e-5):
@@ -41,10 +44,11 @@ def _layernorm(x, gain, bias, eps: float = 1e-5):
 
 
 class _Block(nn.Module):
-    """One pre-LN block's parameters (the JAX package's
-    ``_block_params``)."""
+    """One pre-LN block's parameters: the JAX package's ``_block_params``,
+    or with ``num_experts`` its ``_moe_block_params`` (the same attention
+    half, E experts behind a top-1 router for the MLP)."""
 
-    def __init__(self, d: int, h: int, mlp_dim: int):
+    def __init__(self, d: int, h: int, mlp_dim: int, num_experts: int = 0):
         super().__init__()
         dh = d // h
         self.ln1_g = nn.Parameter(torch.empty(d))
@@ -53,23 +57,42 @@ class _Block(nn.Module):
         self.proj = nn.Parameter(torch.empty(h * dh, d))
         self.ln2_g = nn.Parameter(torch.empty(d))
         self.ln2_b = nn.Parameter(torch.empty(d))
-        self.mlp_in = nn.ParameterDict({
-            "w": nn.Parameter(torch.empty(d, mlp_dim)),
-            "b": nn.Parameter(torch.empty(mlp_dim))})
-        self.mlp_out = nn.ParameterDict({
-            "w": nn.Parameter(torch.empty(mlp_dim, d)),
-            "b": nn.Parameter(torch.empty(d))})
+        if num_experts:
+            e = num_experts
+            self.moe = nn.ParameterDict({
+                "router": nn.Parameter(torch.empty(d, e)),
+                "w1": nn.Parameter(torch.empty(e, d, mlp_dim)),
+                "b1": nn.Parameter(torch.empty(e, mlp_dim)),
+                "w2": nn.Parameter(torch.empty(e, mlp_dim, d)),
+                "b2": nn.Parameter(torch.empty(e, d))})
+        else:
+            self.mlp_in = nn.ParameterDict({
+                "w": nn.Parameter(torch.empty(d, mlp_dim)),
+                "b": nn.Parameter(torch.empty(mlp_dim))})
+            self.mlp_out = nn.ParameterDict({
+                "w": nn.Parameter(torch.empty(mlp_dim, d)),
+                "b": nn.Parameter(torch.empty(d))})
+
+    def _mlp_params(self) -> tuple[list, list]:
+        """The MLP half's (matrices, biases), matrices in the JAX
+        package's init order."""
+        if hasattr(self, "moe"):
+            m = self.moe
+            return [m["router"], m["w1"], m["w2"]], [m["b1"], m["b2"]]
+        return ([self.mlp_in["w"], self.mlp_out["w"]],
+                [self.mlp_in["b"], self.mlp_out["b"]])
 
     @torch.no_grad()
     def init(self, w) -> None:
         """Layer-norm gains 1, biases 0, the matrices from ``w``, in the
-        JAX package's order (qkv, proj, mlp_in, mlp_out)."""
+        JAX package's order (qkv, proj, then mlp_in, mlp_out or router,
+        w1, w2)."""
+        matrices, biases = self._mlp_params()
         for p in (self.ln1_g, self.ln2_g):
             p.fill_(1.0)
-        for p in (self.ln1_b, self.ln2_b, self.mlp_in["b"],
-                  self.mlp_out["b"]):
+        for p in (self.ln1_b, self.ln2_b, *biases):
             p.zero_()
-        for p in (self.qkv, self.proj, self.mlp_in["w"], self.mlp_out["w"]):
+        for p in (self.qkv, self.proj, *matrices):
             w(p)
 
 
@@ -108,15 +131,33 @@ def _transformer_block(h, blk: _Block, attn_fn, cd):
     return _mlp_half(_attn_half_kv(h, blk, attn_fn, cd)[0], blk, cd)
 
 
+def _transformer_block_moe(h, blk: _Block, attn_fn, cd,
+                           capacity_factor: float):
+    """The MoE block: LN -> attention -> residual -> LN -> Switch MoE ->
+    residual. Returns (h, the block's load-balance term)."""
+    h = _attn_half_kv(h, blk, attn_fn, cd)[0]
+    y = _layernorm(h, blk.ln2_g, blk.ln2_b)
+    y, aux = switch_moe(y, blk.moe, capacity_factor=capacity_factor,
+                        compute_dtype=cd)
+    return h + y, aux["lb_loss"]
+
+
+def _call_block(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` under autograd its activations are
+    recomputed in the backward pass (``torch.utils.checkpoint``). A block
+    draws no random numbers (dropout follows the blocks), so the
+    checkpoint keeps no RNG state: stashing and restoring it cannot run
+    inside a CUDA graph's capture."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def _run_blocks(h, blocks, attn_fn, cd, remat: bool):
-    """The blocks in order; with ``remat`` each block's activations are
-    recomputed in the backward pass (``torch.utils.checkpoint``)."""
+    """The dense blocks in order (``remat`` as in ``_call_block``)."""
     for blk in blocks:
-        if remat and torch.is_grad_enabled():
-            h = checkpoint(_transformer_block, h, blk, attn_fn, cd,
-                           use_reentrant=False)
-        else:
-            h = _transformer_block(h, blk, attn_fn, cd)
+        h = _call_block(_transformer_block, remat, h, blk, attn_fn, cd)
     return h
 
 
@@ -129,17 +170,17 @@ def _trunc_normal(generator, stddev: float = 0.02):
     return w
 
 
-def _refuse_unported(seq_axis, moe_experts: int = 0) -> None:
+def _refuse_unported(seq_axis, moe_axis=None) -> None:
     if seq_axis is not None:
         raise NotImplementedError(
             "seq_axis (ring attention, sequence parallelism) is not yet "
             "ported to distributed_tensorflow_tpu_torch (ROADMAP queue 1: "
-            "parallel/sequence_parallel.py)")
-    if moe_experts:
+            "the model axis on torch.distributed, then SP)")
+    if moe_axis is not None:
         raise NotImplementedError(
-            "moe_experts > 0 (Switch MoE blocks) is not yet ported to "
-            "distributed_tensorflow_tpu_torch (ROADMAP queue 1: ops/moe.py "
-            "with parallel/expert_parallel.py)")
+            "moe_axis (expert parallelism) is not yet ported to "
+            "distributed_tensorflow_tpu_torch (ROADMAP queue 1: the model "
+            "axis on torch.distributed, then EP)")
 
 
 class _TransformerBase(nn.Module):
@@ -149,10 +190,10 @@ class _TransformerBase(nn.Module):
     stateful = False
 
     def _build(self, d: int, h: int, num_blocks: int, mlp_dim: int,
-               out_dim: int) -> None:
+               out_dim: int, num_experts: int = 0) -> None:
         if d % h:
             raise ValueError(f"d_model={d} % num_heads={h} != 0")
-        self.blocks = nn.ModuleList(_Block(d, h, mlp_dim)
+        self.blocks = nn.ModuleList(_Block(d, h, mlp_dim, num_experts)
                                     for _ in range(num_blocks))
         self.ln_f = nn.ParameterDict({
             "g": nn.Parameter(torch.empty(d)),
@@ -255,7 +296,11 @@ class TransformerLM(_TransformerBase):
     (``ops.nn.streamed_softmax_ce_head``): training and evaluation then
     go through ``loss_with_metrics`` and never build the (B, S, V)
     logits; ``forward`` still returns them for generation and
-    inspection."""
+    inspection. ``moe_experts > 0`` makes every block's MLP a top-1
+    Switch MoE of that many experts (``ops/moe.py``, capacity factor
+    ``moe_capacity``); ``loss_with_metrics`` then reports the blocks'
+    summed load-balance term as ``moe_lb`` and adds ``moe_aux`` times it
+    to the training loss."""
 
     def __init__(self, vocab_size: int = 64, seq_len: int = 256,
                  d_model: int = 128, num_heads: int = 4,
@@ -264,9 +309,10 @@ class TransformerLM(_TransformerBase):
                  seq_axis: str | None = None,
                  attn_block: int | None = None, remat: bool = False,
                  ce_block: int | None = None, moe_experts: int = 0,
-                 **_unused):
+                 moe_capacity: float = 1.25, moe_aux: float = 0.01,
+                 moe_axis: str | None = None, **_unused):
         super().__init__()
-        _refuse_unported(seq_axis, moe_experts)
+        _refuse_unported(seq_axis, moe_axis)
         self.vocab_size = vocab_size
         self.seq_len = seq_len
         self.d_model = d_model
@@ -277,10 +323,13 @@ class TransformerLM(_TransformerBase):
         self.attn_block = attn_block
         self.remat = remat
         self.ce_block = ce_block
+        self.moe_experts = int(moe_experts)
+        self.moe_capacity = float(moe_capacity)
+        self.moe_aux = float(moe_aux)
         self.tok = nn.Parameter(torch.empty(vocab_size, d_model))
         self.pos = nn.Parameter(torch.empty(seq_len, d_model))
         self._build(d_model, num_heads, num_blocks, self.mlp_dim,
-                    vocab_size)
+                    vocab_size, self.moe_experts)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator | None = None):
@@ -310,11 +359,27 @@ class TransformerLM(_TransformerBase):
                      train: bool = False):
         """The final hidden states (B, S, d): the blocks, ``ln_f`` and
         dropout, everything before the vocab head."""
+        return self._hidden_and_aux(x, keep_prob=keep_prob,
+                                    generator=generator, train=train)[0]
+
+    def _hidden_and_aux(self, x, *, keep_prob: float = 1.0,
+                        generator: torch.Generator | None = None,
+                        train: bool = False):
+        """(hidden states, the MoE blocks' summed load-balance term, a
+        float32 scalar; None for dense blocks)."""
         cd = self.compute_dtype
-        h = _run_blocks(self.embed(x), self.blocks, self.attention, cd,
-                        self.remat)
+        h, lb_total = self.embed(x), None
+        if self.moe_experts:
+            for blk in self.blocks:
+                h, lb = _call_block(_transformer_block_moe, self.remat, h,
+                                    blk, self.attention, cd,
+                                    self.moe_capacity)
+                lb_total = lb if lb_total is None else lb_total + lb
+        else:
+            h = _run_blocks(h, self.blocks, self.attention, cd, self.remat)
         h = _layernorm(h, self.ln_f["g"], self.ln_f["b"])
-        return ops.dropout(h, keep_prob, generator, deterministic=not train)
+        return (ops.dropout(h, keep_prob, generator,
+                            deterministic=not train), lb_total)
 
     def logits(self, h):
         """The vocab head on hidden states -> float32 logits."""
@@ -330,17 +395,21 @@ class TransformerLM(_TransformerBase):
     @property
     def wants_loss_hook(self) -> bool:
         """True when training and evaluation must route through
-        ``loss_with_metrics`` (the streamed loss head)."""
-        return bool(self.ce_block)
+        ``loss_with_metrics``: the streamed loss head, the MoE's
+        load-balance term, or both."""
+        return bool(self.ce_block or self.moe_experts)
 
     def loss_with_metrics(self, x, y, *, keep_prob: float = 1.0,
                           generator: torch.Generator | None = None,
                           train: bool = False):
-        """(loss, {"loss", "accuracy"}) over next-token targets ``y``
-        (B, S): the streamed head with ``ce_block``, else the logits
-        through ``softmax_cross_entropy`` and ``accuracy``."""
-        h = self.apply_hidden(x, keep_prob=keep_prob, generator=generator,
-                              train=train)
+        """(loss, {"loss", "accuracy"[, "moe_lb"]}) over next-token
+        targets ``y`` (B, S): the streamed head with ``ce_block``, else
+        the logits through ``softmax_cross_entropy`` and ``accuracy``.
+        With ``moe_experts`` the metrics add the load-balance term
+        ``moe_lb``, and the training loss (not the metric, not the eval
+        loss) adds ``moe_aux`` times it."""
+        h, lb = self._hidden_and_aux(x, keep_prob=keep_prob,
+                                     generator=generator, train=train)
         if self.ce_block:
             ce, acc = ops.streamed_softmax_ce_head(
                 h, self.head["w"], self.head["b"], y, block=self.ce_block,
@@ -349,4 +418,10 @@ class TransformerLM(_TransformerBase):
             logits = self.logits(h)
             ce = ops.softmax_cross_entropy(logits, y)
             acc = ops.accuracy(logits, y)
-        return ce, {"loss": ce, "accuracy": acc}
+        metrics = {"loss": ce, "accuracy": acc}
+        loss = ce
+        if self.moe_experts:
+            metrics["moe_lb"] = lb
+            if train:
+                loss = ce + self.moe_aux * lb
+        return loss, metrics

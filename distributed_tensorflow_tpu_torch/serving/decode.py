@@ -47,6 +47,8 @@ def check_decodable(model) -> None:
     if not isinstance(model, TransformerLM):
         raise ValueError(f"KV-cache decode serves TransformerLM; got "
                          f"{type(model).__name__}")
+    if model.moe_experts:
+        raise ValueError("KV-cache decode does not support MoE blocks yet")
 
 
 def make_prefill(model):

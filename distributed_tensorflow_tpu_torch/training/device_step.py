@@ -9,9 +9,12 @@ runs a chunk of steps per dispatch, so the host does one call per chunk.
 Here one step is:
 
     draw ``batch`` indices uniformly over the split, gather the uint8
-    images and int32 labels into the batch (the model normalizes them),
-    (augment the uint8 images), forward, backward (a stateful model
-    moves its batch-norm stats in place), (one ``all_reduce`` over the
+    images and int32 labels into the batch (the model normalizes them;
+    for an LM split the rows of input and target tokens, widened to
+    int32 ids), (augment the uint8 images), forward, backward (through
+    the model's loss hook where it has one, so the LM's streamed head
+    and MoE term run inside the step; a stateful model moves its
+    batch-norm stats in place), (one ``all_reduce`` over the
     data-parallel ranks of the gradients, metrics and stats), clip, the
     optimizer's in-place update, ``step += 1``. The ZeRO step
     (``ZeroDeviceTrainStep``) replaces the all-reduce and the update with
@@ -137,11 +140,10 @@ class DeviceTrainStep:
             idx = self.indices(step).to(self.device)
         else:
             idx = self._draw()
-        images = self.data.images.index_select(0, idx)
+        images, labels = self.data.batch(idx)
         if self.augment_fn is not None:
             images = self.augment_fn(images, self.augmenter)
-        batch = (images, self.data.labels.index_select(0, idx))
-        opt_state, metrics = self._update(state, batch)
+        opt_state, metrics = self._update(state, (images, labels))
         if not all(a is b for a, b in zip(tree_leaves(opt_state),
                                           tree_leaves(state.opt_state))):
             raise TypeError("the device step needs an optimizer that "

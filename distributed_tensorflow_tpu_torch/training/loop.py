@@ -123,7 +123,15 @@ def build_model_for(FLAGS, meta: dict):
     kernel), ``mlp`` (``--hidden_units`` wide), a CIFAR ResNet, the
     row-sequence ``transformer``, or, for token data (``--dataset lm``)
     and only for it, the causal ``lm`` (``--attn_block``, ``--ce_block``
-    and ``--remat`` shape its memory)."""
+    and ``--remat`` shape its memory; ``--moe_experts``,
+    ``--moe_capacity`` and ``--moe_aux`` make its blocks Switch MoE).
+    ``--expert_parallel`` raises NotImplementedError."""
+    if FLAGS.expert_parallel:
+        raise NotImplementedError(
+            "--expert_parallel (MoE experts sharded over the mesh's model "
+            "axis) is not yet ported to distributed_tensorflow_tpu_torch "
+            "(ROADMAP queue 1: the model axis on torch.distributed, then "
+            "EP); the MoE LM trains without it (--moe_experts E)")
     compute_dtype = torch.bfloat16 if FLAGS.bf16 else None
     if meta.get("kind") == "lm":
         # token data feeds only the causal LM, and the LM only token data
@@ -137,7 +145,9 @@ def build_model_for(FLAGS, meta: dict):
             num_blocks=FLAGS.num_blocks, compute_dtype=compute_dtype,
             attn_block=FLAGS.attn_block if FLAGS.attn_block > 0 else None,
             remat=bool(FLAGS.remat),
-            ce_block=FLAGS.ce_block if FLAGS.ce_block > 0 else None)
+            ce_block=FLAGS.ce_block if FLAGS.ce_block > 0 else None,
+            moe_experts=FLAGS.moe_experts, moe_capacity=FLAGS.moe_capacity,
+            moe_aux=FLAGS.moe_aux)
     if FLAGS.model == "lm":
         raise ValueError("--model lm consumes token sequences; use "
                          "--dataset lm")
@@ -378,12 +388,6 @@ def _zero_fns(FLAGS, model, opt, mesh, level: int, accum: int, augment):
 
 def _train_once(FLAGS, mode: str = "local") -> TrainResult:
     level = FLAGS.zero
-    if FLAGS.dataset == "lm" and (FLAGS.device_data or level):
-        what = "--device_data" if FLAGS.device_data else f"--zero={level}"
-        raise NotImplementedError(
-            f"--dataset lm with {what} is not yet ported to "
-            f"distributed_tensorflow_tpu_torch (ROADMAP queue 1); train the "
-            f"LM host-fed, local or --mode sync")
     if level and mode != "sync":
         # a --mode=auto run of one worker lands here as "local"
         raise ValueError(

@@ -286,7 +286,8 @@ def loss_and_metrics(model, batch, *, keep_prob=1.0, rng=None,
     """(loss, {"metrics": {"loss", "accuracy"}, "model_state": ...}) for
     one batch through ``model``'s current parameters; a model with
     ``wants_loss_hook`` computes both through its ``loss_with_metrics``
-    (the LM with ``ce_block``). ``rng`` is a
+    (the LM with ``ce_block`` or ``moe_experts``; the MoE LM's metrics
+    add ``moe_lb``). ``rng`` is a
     dropout seed (``dropout_seed``), a ``torch.Generator`` seeded with
     one, or None for no dropout. A stateful model normalizes by the batch
     in train mode, moving ``model_state`` (its buffers) in place, and by
@@ -298,12 +299,12 @@ def loss_and_metrics(model, batch, *, keep_prob=1.0, rng=None,
         generator = torch.Generator(device=x.device).manual_seed(rng)
     if getattr(model, "wants_loss_hook", False):
         # a model that owns its loss (the LM's streamed CE head, which
-        # never builds the (B, S, V) logits): one hook for train, eval
-        # and evaluate()
+        # never builds the (B, S, V) logits; its MoE load-balance term):
+        # one hook for train, eval and evaluate(), whose metrics are the
+        # hook's ("loss" the cross-entropy, without the aux term)
         loss, metrics = model.loss_with_metrics(
             x, y, keep_prob=keep_prob, generator=generator, train=train)
-        return loss, {"metrics": {"loss": loss.detach(),
-                                  "accuracy": metrics["accuracy"]},
+        return loss, {"metrics": {k: v.detach() for k, v in metrics.items()},
                       "model_state": model_state}
     logits = model(x, keep_prob=keep_prob, generator=generator, train=train)
     loss = nn.softmax_cross_entropy(logits, y)

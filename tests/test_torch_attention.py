@@ -16,6 +16,10 @@ from distributed_tensorflow_tpu.ops import nn as jnn
 from distributed_tensorflow_tpu_torch.ops import attention as tattn
 from distributed_tensorflow_tpu_torch.ops import nn as tnn
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-6)
 
 

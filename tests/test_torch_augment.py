@@ -18,6 +18,10 @@ from distributed_tensorflow_tpu_torch.ops import augment as taug
 from distributed_tensorflow_tpu_torch.training import device_step
 from distributed_tensorflow_tpu_torch.training import train_state as tts
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 CIFAR = {"image_size": 32, "channels": 3}
 
 

@@ -18,6 +18,10 @@ from distributed_tensorflow_tpu_torch.models import DeepCNN
 from distributed_tensorflow_tpu_torch.utils import events as tevents
 from distributed_tensorflow_tpu_torch.utils.pytree import params_to_numpy
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("n", [0, 9, 1023, 4096, 70001])
 def test_crc32c_matches_jax(n):

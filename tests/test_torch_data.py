@@ -20,6 +20,10 @@ from distributed_tensorflow_tpu_torch.data.pipeline import (
     prefetch_to_device,
 )
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def small_splits(monkeypatch):

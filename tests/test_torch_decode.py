@@ -37,6 +37,10 @@ from distributed_tensorflow_tpu_torch.serving.__main__ import (
 )
 from distributed_tensorflow_tpu_torch.utils.pytree import params_from_jax
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 V, S, D, H, NB = 16, 32, 32, 2, 2
 TOL = dict(rtol=1e-4, atol=1e-6)
 N_NEW = 6

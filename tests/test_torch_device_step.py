@@ -42,6 +42,10 @@ from distributed_tensorflow_tpu_torch.utils.pytree import (
 )
 from tests.test_torch_parallel import free_port, write_mnist_idx
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_EXAMPLES, BATCH, STEPS = 96, 16, 5
 
@@ -325,7 +329,8 @@ def test_entry_point_trains_sync_device_resident_on_the_cpu(tmp_path):
          f"127.0.0.1:{free_port()}", "--device_data", "--training_iter",
          "6", "--display_step", "3", "--device_chunk", "3",
          "--batch_size", "16", "--logdir", logdir, "--data_dir", data_dir],
-        cwd=REPO, capture_output=True, text=True, timeout=240)
+        cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     lines = proc.stdout.splitlines()
     for step in (0, 3):

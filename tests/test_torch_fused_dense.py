@@ -25,6 +25,10 @@ from distributed_tensorflow_tpu_torch.ops.fused_dense import (
     split_chunks,
 )
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 WD1_M = (1, 2, 4, 8, 128, 256)  # the serving buckets and the training batches
 DTYPES = (torch.float32, torch.bfloat16)
 

@@ -10,6 +10,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from distributed_tensorflow_tpu import flags as jflags
 from distributed_tensorflow_tpu.checkpoint import checkpoint as jckpt
@@ -27,6 +28,10 @@ from distributed_tensorflow_tpu_torch.data import datasets as tdata
 from distributed_tensorflow_tpu_torch.training.loop import (
     evaluate_only as tevaluate_only,
 )
+
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
 
 
 def _logdir(tmp_path, layout):

@@ -49,6 +49,10 @@ from distributed_tensorflow_tpu_torch.utils.pytree import (
     params_to_numpy,
 )
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 V, S, D, H, NB = 16, 32, 32, 2, 2
 TOL = dict(rtol=1e-4, atol=1e-6)
 LM_ARGS = ["--model", "lm", "--dataset", "lm", "--seq_len", str(S),
@@ -330,7 +334,7 @@ def test_train_lm_local_and_sync_through_the_loop(fresh_flags, tmp_path):
     assert _eval_batch_for(model, {"image_size": 28}) == 1000
 
 
-def test_pairing_errors_and_paths_not_yet_ported(fresh_flags):
+def test_pairing_errors_and_paths_not_yet_ported(fresh_flags, tmp_path):
     fresh_flags._parse(["--device", "cpu", *LM_ARGS])
     with pytest.raises(ValueError, match="Use --model lm"):
         fresh_flags.model = "deep_cnn"
@@ -340,17 +344,26 @@ def test_pairing_errors_and_paths_not_yet_ported(fresh_flags):
     with pytest.raises(ValueError, match="use --dataset lm"):
         build_model_for(fresh_flags, {"image_size": 28, "channels": 1,
                                       "num_classes": 10})
-    for extra in (["--device_data"], ["--zero", "1", "--mode", "sync",
-                                      "--worker_hosts", "127.0.0.1:1"]):
-        fresh_flags._reset()
-        fresh_flags._parse(["--device", "cpu", *LM_ARGS, *extra])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train(fresh_flags)
+    # --device_data and --zero train the LM now (test_torch_lm_device.py):
+    # a 2-step device-resident run, and --zero refuses local mode as for
+    # any model
+    fresh_flags._reset()
+    fresh_flags._parse(["--device", "cpu", *LM_ARGS, "--device_data",
+                        "--training_iter", "2", "--batch_size", "4",
+                        "--test_eval", "false", "--logdir",
+                        str(tmp_path / "dev")])
+    assert train(fresh_flags).final_step == 2
+    fresh_flags._reset()
+    fresh_flags._parse(["--device", "cpu", *LM_ARGS, "--zero", "1", "--mode",
+                        "sync", "--worker_hosts", "127.0.0.1:1"])
+    with pytest.raises(ValueError, match="requires sync mode"):
+        train(fresh_flags)
     fresh_flags._reset()
     with pytest.raises(ValueError, match="augment"):
         fresh_flags._parse(["--device", "cpu", *LM_ARGS, "--augment"])
-    with pytest.raises(NotImplementedError, match="moe_experts"):
-        get_model("lm", moe_experts=2)
+    assert get_model("lm", moe_experts=2).wants_loss_hook
+    with pytest.raises(NotImplementedError, match="moe_axis"):
+        get_model("lm", moe_experts=2, moe_axis="model")
     with pytest.raises(NotImplementedError, match="seq_axis"):
         get_model("lm", seq_axis="model")
     with pytest.raises(NotImplementedError, match="seq_axis"):

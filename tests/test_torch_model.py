@@ -19,6 +19,10 @@ from distributed_tensorflow_tpu_torch.utils.pytree import (
     params_to_numpy,
 )
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def jax_params():

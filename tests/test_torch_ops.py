@@ -12,6 +12,10 @@ import torch
 from distributed_tensorflow_tpu.ops import nn as jnn
 from distributed_tensorflow_tpu_torch.ops import nn as tnn
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 _F32 = dict(rtol=1e-5, atol=1e-5)
 _BF16 = dict(rtol=2e-2, atol=2e-2)
 

@@ -35,6 +35,10 @@ from distributed_tensorflow_tpu_torch.utils.profiling import (
     collective_sync_cadence,
 )
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GLOBAL_BATCH, STEPS, LR = 16, 5, 1e-3
 JOIN_S = 240  # a rank that has not finished by then has hung
@@ -88,7 +92,7 @@ def _spawn(target, world: int, *args):
 
 
 def _join_group(rank, world, port):
-    torch.set_num_threads(2)  # several ranks share the host's cores
+    torch.set_num_threads(1)  # several ranks share the host's cores
     spec = cluster.ClusterSpec({"worker": [f"127.0.0.1:{port}"] * world})
     assert cluster.maybe_initialize_distributed(spec, rank, "cpu")
 
@@ -467,8 +471,9 @@ def test_entry_point_trains_sync_over_two_processes(tmp_path):
          "--device", "cpu", "--mode", "sync", "--worker_hosts", hosts,
          "--task_index", str(i), "--training_iter", "4", "--display_step",
          "2", "--batch_size", "16", "--logdir", logdir, "--data_dir",
-         data_dir], cwd=REPO, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for i in (0, 1)]
+         data_dir], cwd=REPO, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in (0, 1)]
     outs = []
     try:
         for p in procs:

@@ -38,6 +38,10 @@ from distributed_tensorflow_tpu_torch.models import get_model
 from distributed_tensorflow_tpu_torch.parallel import ps_emulation as tps
 from distributed_tensorflow_tpu_torch.utils.pytree import tree_leaves
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JOIN_S = 240
 
@@ -609,7 +613,7 @@ def test_entry_point_trains_one_ps_two_workers(tmp_path):
               "--training_iter", "20", "--batch_size", "16",
               "--display_step", "5", "--optimizer", "adam", "--logdir",
               logdir, "--data_dir", data_dir, "--save_model_secs", "1"]
-    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, "-m", "distributed_tensorflow_tpu_torch.mnist_dist",
          f"--job_name={job}", f"--task_index={i}", *common], cwd=REPO,

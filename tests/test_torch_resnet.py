@@ -45,6 +45,10 @@ from distributed_tensorflow_tpu_torch.utils.pytree import (
     tree_leaves,
 )
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 BN_F32 = dict(rtol=1e-5, atol=1e-6)
 F32 = dict(rtol=1e-4, atol=1e-5)
 

@@ -34,6 +34,10 @@ from distributed_tensorflow_tpu_torch.serving.__main__ import (
     build_serving_stack,
 )
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -26,6 +26,10 @@ from distributed_tensorflow_tpu_torch.utils.pytree import (
     tree_map,
 )
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 ELEMENTWISE = dict(rtol=1e-6, atol=1e-9)
 
 

@@ -9,6 +9,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from distributed_tensorflow_tpu import flags as jflags
 from distributed_tensorflow_tpu import native
@@ -24,6 +25,10 @@ from distributed_tensorflow_tpu_torch import flags as tflags
 from distributed_tensorflow_tpu_torch.checkpoint import checkpoint as tckpt
 from distributed_tensorflow_tpu_torch.data import datasets as tdata
 from distributed_tensorflow_tpu_torch.training.loop import train as ttrain
+
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 6
@@ -237,8 +242,9 @@ def test_models_that_are_not_ported_raise(port_flags):
     )
     from distributed_tensorflow_tpu_torch.training.loop import build_model_for
 
-    # the transformer families are ported now; their sequence-parallel
-    # and MoE forms are not, and token data still needs --model lm
+    # the transformer families and the LM's MoE blocks are ported now;
+    # their sequence- and expert-parallel forms are not, and token data
+    # still needs --model lm
     cifar = {"image_size": 32, "channels": 3, "num_classes": 10}
     port_flags._parse(["--model=transformer"])
     assert isinstance(build_model_for(port_flags, cifar), MiniTransformer)
@@ -246,10 +252,15 @@ def test_models_that_are_not_ported_raise(port_flags):
     port_flags._parse([])
     with pytest.raises(ValueError, match="Use --model lm"):
         build_model_for(port_flags, {"kind": "lm"})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model("lm", moe_experts=4)
+    assert get_model("lm", moe_experts=4).blocks[0].moe["w1"].shape[0] == 4
     with pytest.raises(NotImplementedError, match="not yet ported"):
         get_model("transformer", seq_axis="model")
+    port_flags._reset()
+    port_flags._parse(["--model=lm", "--dataset=lm", "--moe_experts=4",
+                       "--expert_parallel"])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        build_model_for(port_flags, {"kind": "lm", "seq_len": 8,
+                                     "vocab_size": 16})
 
 
 def test_final_save_after_a_failed_eval_holds_one_step(
@@ -314,6 +325,7 @@ def test_modes_that_are_not_ported_raise(port_flags):
 
 
 def _run_entry(args, env=None, timeout=240):
+    env = dict(os.environ if env is None else env, OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-m", "distributed_tensorflow_tpu_torch.mnist_dist",
          *args], cwd=REPO, capture_output=True, text=True, timeout=timeout,

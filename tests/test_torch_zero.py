@@ -62,6 +62,10 @@ from tests.test_torch_parallel import (
     write_mnist_idx,
 )
 
+# one intra-op thread: the suite runs several test (and rank) processes
+# on the host's cores, where OpenMP's spinning threads oversubscribe it
+torch.set_num_threads(1)
+
 DS = [1, 2, 3, 4, 8]
 BUCKET_MB = 0.5  # the overlapped runs' buckets: the small leaves share one
 CLIP = 1.0
