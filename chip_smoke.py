@@ -41,7 +41,7 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    around a CUDA graph of many launches over rotating buffers larger than
    L2, beside the least time the card could take;
 7. the ``kernels`` JSON line, the card line, and ``{"ok": true, ...}`` last,
-   after phase 13;
+   after phase 14;
 8. device-resident sync DP: a one-rank NCCL group on
    ``tcp://127.0.0.1:<free port>``, then ``train(FLAGS, mode="sync")`` with
    ``--device_data --pallas`` in f32 and in bf16 (each step one CUDA graph
@@ -152,7 +152,38 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    --device_data`` on the MoE LM: 20 replays bitwise equal to the
    replicated step's (one rank: the collectives are copies), 100 steps
    through ``train``, and its final checkpoint resumed by a replicated
-   run; (e) ``fused_dense_relu`` must not launch over (a)-(d).
+   run; (e) ``fused_dense_relu`` must not launch over (a)-(d);
+14. continuous serving of a seeded lm_4k checkpoint (bf16) through the
+   paged-KV slot scheduler: (a) the slot step (``decode.make_slot_step``)
+   at 12 slots, page 16, live slots at mixed positions up to 4095 and two
+   free slots on the scratch page, on the card against its eager CPU run
+   in f32 and bf16 (logits within 1e-4 / 2e-2 of their scale, the written
+   pool rows within the same, every other row untouched); 20 replays of
+   ``EngineSlotBackend``'s CUDA graph against 20 eager slot steps on the
+   card, logits and pools bitwise, one capture; a capture under
+   ``torch.use_deterministic_algorithms`` (``index_put_``'s sorting path
+   with the free slots' duplicate scratch writes) within the tolerance;
+   the step's time eager and replayed; (b) ``build_serving_stack
+   --serve_scheduler continuous --serve_slots 12``: 32 HTTP
+   ``/v1/generate`` requests of 8 (prompt 1-64, new tokens 1-256) shapes
+   from 8 threads, each equal to the whole-batch ``engine.generate`` of
+   its prompt but at near ties (the first differing position's top-2
+   margin within 2e-2 of the logits' scale), then after the drain the
+   page ledger, no page in use, one graph capture, every request's phases
+   summing to its wall time, and ``/metrics``' ``tail``, ``hbm.kv_pages``
+   and ``continuous`` blocks; (c) ``POST /admin/reload`` of a new
+   checkpoint while 4 requests of 256 new tokens are in flight: they
+   finish on the old weights (equal to its whole-batch generate), a
+   request sent after the reload gets the new checkpoint's tokens, and
+   the graph is captured again; (d) whole-batch (``--serve_max_batch 4``,
+   four dense 4096-token rows) against continuous (``--serve_slots 12
+   --serve_kv_pages 1024 --serve_kv_page 16``) at the same KV token
+   budget, 96 requests (prompt 64, 32 new tokens, every 10th 256) from 16
+   closed-loop clients an arm, in turns: generated tokens/s, request
+   p50/p99, the tail block's queue_wait p99, KV pages high water; then
+   the slot step's time an iteration, its graph replay's device time and
+   the card's busy share over 20 profiled iterations. No bar is set on
+   them; (e) ``fused_dense_relu`` must not launch over (b)-(d).
 
 Any failed phase raises, so the script exits non-zero. f32 runs in full
 f32: TF32 is turned off for cuDNN and cuBLAS.
@@ -161,6 +192,7 @@ f32: TF32 is turned off for cuDNN and cuBLAS.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import math
@@ -234,6 +266,8 @@ from distributed_tensorflow_tpu_torch.training.device_step import (
     make_zero_device_train_step,
 )
 from distributed_tensorflow_tpu_torch.training.loop import (
+    _PROFILE_MARGIN_S,
+    PROFILED_STEPS,
     evaluate_only,
     train,
 )
@@ -391,6 +425,33 @@ MOE_MARGIN = 1e-3  # every token's top-2 router probabilities this far apart
 # 13c: lm_4k device-resident in chunks of 5 (the first chunk, the
 # warm-up and the capture, stays out of the window of LM_STEPS)
 LM4K_CHUNK = 5
+
+# phase 14: continuous serving of an lm_4k checkpoint (bf16, seeded). 14a
+# holds the slot step on the card against the CPU at 12 slots, page 16,
+# live slots at mixed positions (their pages mapped, the free slots 2 and
+# 6 on the scratch page), in f32 and bf16, then 20 graph replays against
+# 20 eager steps. 14b serves 32 requests of 8 (prompt, new tokens) shapes
+# over HTTP from N_THREADS threads through 12 slots; 14c reloads a new
+# checkpoint under 4 in-flight requests (prompt 1024, 256 new tokens,
+# 1279 iterations, so they outlast the restore); 14d runs
+# whole-batch (4 dense rows of 4096 tokens) against continuous (1024
+# pages of 16: the same 16,384-token KV budget) on the JAX bench's
+# long-tail mix (prompt 64, 32 new tokens, every 10th request 256) from
+# 16 closed-loop clients, 96 requests an arm, in turns
+CONT_DEVICE = "cuda"
+CONT_SLOTS, CONT_PAGE, CONT_STEP_PAGES = 12, 16, 1024
+CONT_STEP_T = (0, 5, 0, 4076, 100, 2000, 0, 17, 511, 3000, 63, 1024)
+CONT_FREE = (2, 6)
+CONT_STEP_TOL = {"f32": 1e-4, "bf16": 2e-2}
+CONT_REPLAYS = 20
+CONT_REQUESTS, CONT_MAX_NEW = 32, 256
+CONT_SHAPES = ((1, 256), (64, 1), (7, 100), (33, 17), (64, 256), (2, 64),
+               (50, 200), (16, 32))
+CONT_RELOAD_INFLIGHT, CONT_RELOAD_PROMPT = 4, 1024
+CONT_WHOLE_BATCH, CONT_KV_PAGES = 4, 1024
+CONT_BENCH_REQUESTS, CONT_BENCH_CLIENTS = 96, 16
+CONT_BENCH_SHORT, CONT_BENCH_LONG = 32, 256
+CONT_PROFILE_ITERS = 20
 
 N_REQUESTS, N_THREADS = 64, 8
 KERNEL_SRC = "distributed_tensorflow_tpu_torch/ops/csrc/fused_dense_relu.cu"
@@ -2653,6 +2714,505 @@ def phase_lm_complete(card: str, work: str, data_dir: str, port: int,
             "launches": launches}
 
 
+# ------------------------------- phase 14: continuous serving of lm_4k
+
+def cont_model(dtype_name: str, seed: int = 0):
+    """An lm_4k model, seeded; ``dtype_name`` picks its compute dtype."""
+    seq_len, vocab = LM_4K
+    cd = torch.bfloat16 if dtype_name == "bf16" else None
+    return TransformerLM(vocab_size=vocab, seq_len=seq_len, compute_dtype=cd,
+                         **LM_WIDTH).init(torch.Generator().manual_seed(seed))
+
+
+def cont_checkpoint(logdir: str, step: int, seed: int) -> None:
+    save_checkpoint(logdir, {"params": params_to_numpy(cont_model("f32",
+                                                                  seed)),
+                             "step": np.int32(step)}, step)
+
+
+def slot_feed(step: int, seed: int):
+    """Phase 14a's inputs at iteration ``step``: CONT_SLOTS slots, the
+    live ones at CONT_STEP_T plus ``step``, each on its own pages (mapped
+    up to that position), the free ones (CONT_FREE) on the scratch page
+    at position 0 with token 0, as the scheduler leaves them."""
+    seq_len, vocab = LM_4K
+    per_slot = seq_len // CONT_PAGE
+    table = np.zeros((CONT_SLOTS, per_slot), np.int32)
+    t = np.zeros(CONT_SLOTS, np.int32)
+    tok = np.random.default_rng(seed + step).integers(
+        0, vocab, CONT_SLOTS).astype(np.int32)
+    page = 1
+    for i, t0 in enumerate(CONT_STEP_T):
+        if i in CONT_FREE:
+            tok[i] = 0
+            continue
+        t[i] = min(t0 + step, seq_len - 1)
+        need = (t0 + CONT_REPLAYS - 1) // CONT_PAGE + 1
+        table[i, :need] = np.arange(page, page + need)
+        page += need
+    assert page - 1 <= CONT_STEP_PAGES
+    return table, tok, t
+
+
+def cont_engine(dtype_name: str, logdir: str):
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        InferenceEngine,
+    )
+
+    return InferenceEngine(cont_model(dtype_name), logdir,
+                           device=CONT_DEVICE, max_batch=4)
+
+
+def phase_slot_step(card: str, work: str) -> dict:
+    """14a: the slot step on the card against its eager CPU run, f32 and
+    bf16; 20 replays of the backend's CUDA graph against 20 eager steps
+    on the card, and a capture under deterministic algorithms; the step's
+    time eager and replayed."""
+    from distributed_tensorflow_tpu_torch.serving import decode as dec
+    from distributed_tensorflow_tpu_torch.serving.continuous import (
+        EngineSlotBackend,
+    )
+
+    logdir = os.path.join(work, "cont-step")
+    cont_checkpoint(logdir, 1, seed=0)
+    out = {}
+    live = [i for i in range(CONT_SLOTS) if i not in CONT_FREE]
+    for tag in DTYPES:
+        tol = CONT_STEP_TOL[tag]
+        model = cont_model(tag)
+        step_fn = dec.make_slot_step(model, CONT_PAGE)
+        table, tok, t = slot_feed(0, seed=11)
+        g = torch.Generator().manual_seed(3)
+        cpu_pools = tuple(tuple(
+            (torch.randn(p.shape, generator=g) * 0.5).to(p.dtype)
+            for p in pair) for pair in dec.make_slot_pools(
+                model, CONT_PAGE, CONT_STEP_PAGES))
+        dev_pools = tuple(tuple(p.to(CONT_DEVICE) for p in pair)
+                          for pair in cpu_pools)
+        dev_model = copy.deepcopy(model).to(CONT_DEVICE)
+        args = [torch.from_numpy(a) for a in (table, tok, t)]
+        with torch.no_grad():
+            want = step_fn(model, cpu_pools, *args)
+            got = step_fn(dev_model, dev_pools,
+                          *(a.to(CONT_DEVICE) for a in args)).cpu()
+        logit_err = rel_err(got[live], want[live])
+        rows = torch.from_numpy(table[live, t[live] // CONT_PAGE]).long()
+        offs = torch.from_numpy(t[live] % CONT_PAGE).long()
+        pool_err, pool_bitwise, untouched = 0.0, True, True
+        for cpu_pair, dev_pair in zip(cpu_pools, dev_pools):
+            for c, d in zip(cpu_pair, dev_pair):
+                d = d.cpu()
+                pool_err = max(pool_err, rel_err(d[rows, offs], c[rows, offs]))
+                pool_bitwise &= bool(torch.equal(d[rows, offs], c[rows, offs]))
+                mask = torch.ones(c.shape[:2], dtype=torch.bool)
+                mask[rows, offs] = False
+                mask[0, 0] = False  # the free slots' scratch writes
+                untouched &= bool(torch.equal(d[mask], c[mask]))
+        say("continuous", f"14a {tag} slot step on the card vs its eager CPU "
+                          f"run ({CONT_SLOTS} slots, page {CONT_PAGE}, t "
+                          f"{list(CONT_STEP_T)}, free {list(CONT_FREE)}): "
+                          f"logits {logit_err:.3e} of scale, written pool "
+                          f"rows {pool_err:.3e} (bitwise {pool_bitwise}), "
+                          f"other rows untouched {untouched} (tolerance "
+                          f"{tol})")
+        if not (logit_err <= tol and pool_err <= tol and untouched):
+            raise AssertionError(f"{tag}: the slot step on the card "
+                                 f"disagrees with the CPU")
+        # the backend's graph against eager steps of the same module on
+        # fresh pools on the card, and a capture under deterministic
+        # algorithms (index_put_'s sorting path, with the free slots'
+        # duplicate scratch writes)
+        engine = cont_engine(tag, logdir)
+        on_card = torch.device(CONT_DEVICE).type == "cuda"
+        backends = {
+            name: EngineSlotBackend(engine, n_slots=CONT_SLOTS,
+                                    page_size=CONT_PAGE,
+                                    num_pages=CONT_STEP_PAGES)
+            for name in ("graph", "deterministic")}
+        eager_module = engine.current()[0]
+        eager_pools = dec.make_slot_pools(model, CONT_PAGE, CONT_STEP_PAGES,
+                                          device=CONT_DEVICE)
+
+        def eager_step(*feed):
+            with torch.no_grad():
+                return step_fn(eager_module, eager_pools, *(
+                    torch.from_numpy(a).to(CONT_DEVICE)
+                    for a in feed)).cpu().numpy()
+
+        steppers = {"eager": eager_step,
+                    **{name: be.step for name, be in backends.items()}}
+        logits = {name: [] for name in steppers}
+        ms = {}
+        for name, stepper in steppers.items():
+            if name == "deterministic":
+                torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                for i in range(CONT_REPLAYS):
+                    logits[name].append(stepper(*slot_feed(i, seed=11)))
+                    if i == 1:  # the capture is behind us
+                        t1 = time.perf_counter()
+                ms[name] = (time.perf_counter() - t1) * 1e3 / (
+                    CONT_REPLAYS - 2)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        eager = np.stack(logits["eager"])
+        replay_bitwise = bool(np.array_equal(np.stack(logits["graph"]),
+                                             eager))
+        pools_bitwise = all(
+            torch.equal(a, b) for pa, pb in zip(eager_pools,
+                                                backends["graph"].pools)
+            for a, b in zip(pa, pb))
+        det = np.stack(logits["deterministic"])[:, live]
+        det_err = float(np.abs(det - eager[:, live]).max()
+                        / np.abs(eager[:, live]).max())
+        det_bitwise = bool(np.array_equal(det, eager[:, live]))
+        captures = {n: b.captures for n, b in backends.items()}
+        say("continuous", f"14a {tag}: {CONT_REPLAYS} graph replays vs "
+                          f"{CONT_REPLAYS} eager steps on the card: logits "
+                          f"bitwise {replay_bitwise}, pools bitwise "
+                          f"{pools_bitwise}; captured under deterministic "
+                          f"algorithms: live logits {det_err:.3e} of scale "
+                          f"(bitwise {det_bitwise}); captures {captures}")
+        say("times", f"14a {tag} slot step ({CONT_SLOTS} slots, "
+                     f"{LM_4K[0]}-token capacity): eager "
+                     f"{ms['eager']:.4f} ms, graph {ms['graph']:.4f} ms an "
+                     f"iteration, host clock with the logits' readback | "
+                     f"{card}")
+        if on_card and not (replay_bitwise and pools_bitwise
+                            and captures["graph"] == 1):
+            raise AssertionError(f"{tag}: graph replays differ from eager "
+                                 f"steps on the card")
+        if not det_err <= tol:
+            raise AssertionError(f"{tag}: the step captured under "
+                                 f"deterministic algorithms disagrees")
+        out[tag] = {"logit_err": logit_err, "pool_err": pool_err,
+                    "pool_bitwise": pool_bitwise,
+                    "replay_bitwise": replay_bitwise,
+                    "det_err": det_err, "det_bitwise": det_bitwise,
+                    "eager_ms": ms["eager"], "graph_ms": ms["graph"]}
+        del backends, engine, dev_pools, dev_model, eager_pools
+    return out
+
+
+def cont_stack(logdir: str, *extra: str):
+    """(engine, client, metrics, server) of ``build_serving_stack`` over
+    the lm_4k checkpoint in ``logdir``, bf16, serving on an ephemeral
+    port."""
+    flags.define_flags()
+    flags.FLAGS._reset()
+    flags.FLAGS._parse(
+        ["--logdir", logdir, *lm_args(*LM_4K), "--bf16", "--serve_port",
+         "0", "--serve_reload_secs", "0", "--serve_timeout_ms", "600000",
+         "--serve_max_new_tokens", str(CONT_MAX_NEW), *extra])
+    engine, client, _watcher, metrics = build_serving_stack(flags.FLAGS)
+    server = InferenceServer(engine, client, port=0).start_background()
+    return engine, client, metrics, server
+
+
+def cont_close(client, metrics, server) -> None:
+    server.close()
+    client.generate_batcher.close()
+    client.predict_batcher.close()
+    metrics.logger.close()
+
+
+def tie_check(got: list, prompts: list, ref: dict, tol: float) -> dict:
+    """Continuous tokens against whole-batch ``generate`` output ``ref``
+    for the same prompts: a request whose tokens first differ at a
+    position where the reference's top-2 margin is within ``tol`` of its
+    logits' scale is a near tie, counted and not failed."""
+    out = {"equal": 0, "near_tie": 0, "mismatch": 0}
+    for i, (toks, prompt) in enumerate(zip(got, prompts)):
+        p = len(prompt)
+        want = ref["tokens"][i]
+        diff = np.flatnonzero(np.asarray(toks)[p:] != want[p:])
+        if not diff.size:
+            out["equal"] += 1
+            continue
+        row = ref["logits"][i, diff[0]]
+        top2 = np.sort(row)[-2:]
+        tie = (top2[1] - top2[0]) <= tol * float(np.abs(ref["logits"][i])
+                                                  .max())
+        out["near_tie" if tie else "mismatch"] += 1
+    return out
+
+
+def post_all(url: str, bodies: list, threads: int) -> tuple[list, list]:
+    """POST every body from ``threads`` closed-loop clients; returns the
+    responses and each request's client-side latency (s), by index."""
+    outs, lat = [None] * len(bodies), [0.0] * len(bodies)
+    nxt = iter(range(len(bodies)))
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            t0 = time.perf_counter()
+            outs[i] = _post(url, bodies[i])
+            lat[i] = time.perf_counter() - t0
+
+    pool = [threading.Thread(target=client) for _ in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=900)
+    if any(o is None for o in outs):
+        raise AssertionError("a closed-loop client did not finish")
+    return outs, lat
+
+
+def phase_cont_serve(card: str, work: str) -> dict:
+    """14b and 14c: HTTP generates through the continuous scheduler, then
+    a hot reload under traffic."""
+    from distributed_tensorflow_tpu_torch.serving import decode as dec
+    from distributed_tensorflow_tpu_torch.serving import reqtrace
+
+    logdir = os.path.join(work, "cont-serve")
+    cont_checkpoint(logdir, 1, seed=0)
+    tol = LM_SERVE_TOL["bf16"]
+    engine, client, metrics, server = cont_stack(
+        logdir, "--serve_scheduler", "continuous", "--serve_slots",
+        str(CONT_SLOTS))
+    batcher = client.generate_batcher
+    backend = batcher.scheduler.backend
+    url = server.address + "/v1/generate"
+    rng = np.random.default_rng(17)
+    vocab = LM_4K[1]
+    shapes = [CONT_SHAPES[i % len(CONT_SHAPES)] for i in range(CONT_REQUESTS)]
+    prompts = [rng.integers(0, vocab, p).astype(np.int32) for p, _ in shapes]
+    try:
+        t0 = time.perf_counter()
+        outs, _lat = post_all(url, [
+            {"prompt": pr.tolist(), "max_new_tokens": n}
+            for pr, (_, n) in zip(prompts, shapes)], N_THREADS)
+        wall = time.perf_counter() - t0
+        snap = batcher.scheduler.snapshot()
+        captures = backend.captures
+        plane = reqtrace.get_plane()
+        audit = [s for s in plane.audit_snapshot()
+                 if s["route"] == "generate"]
+        sums = max(abs(sum(s["phases_ms"].values()) - s["total_ms"])
+                   for s in audit if s["disposition"] == "ok")
+        with urllib.request.urlopen(server.address + "/metrics",
+                                    timeout=60) as r:
+            m = json.loads(r.read())
+        blocks = {"tail": m["tail"] is not None,
+                  "kv_pages": (m["hbm"] or {}).get("kv_pages") is not None,
+                  "continuous": m["generate"].get("continuous") is not None}
+        # whole-batch generate of the same prompts, one call a shape
+        check = {"equal": 0, "near_tie": 0, "mismatch": 0}
+        for shape in CONT_SHAPES:
+            idx = [i for i, s in enumerate(shapes) if s == shape]
+            ref = engine.generate(np.stack([prompts[i] for i in idx]),
+                                  shape[1])
+            c = tie_check([outs[i]["tokens"] for i in idx],
+                          [prompts[i] for i in idx], ref, tol)
+            for k in check:
+                check[k] += c[k]
+        say("continuous", f"14b {CONT_REQUESTS} HTTP generates (prompt, new "
+                          f"tokens in {CONT_SHAPES}) from {N_THREADS} "
+                          f"threads through {CONT_SLOTS} slots in "
+                          f"{wall:.3f} s, {snap['iterations']} iterations, "
+                          f"slot occupancy {snap['slot_occupancy']}; vs "
+                          f"whole-batch generate: {check}; page ledger "
+                          f"{snap['page_ledger_ok']}, pages in use after "
+                          f"the drain {snap['kv_pages']['pages_in_use']}, "
+                          f"high water {snap['kv_pages']['pages_high_water']}"
+                          f"; graph captures {captures}; phases vs wall "
+                          f"max {sums:.4f} ms over {len(audit)} requests; "
+                          f"/metrics blocks {blocks}")
+        if check["mismatch"] or not snap["page_ledger_ok"] or \
+                snap["kv_pages"]["pages_in_use"] or \
+                captures != int(backend.graph) or \
+                sums > 0.05 or not all(blocks.values()) or \
+                len(audit) != CONT_REQUESTS:
+            raise AssertionError("14b: continuous serving failed a check")
+        # 14c: a hot reload while requests are in flight
+        old_module = engine.current()[0]
+        cont_checkpoint(logdir, 2, seed=1)
+        rprompts = [rng.integers(0, vocab, CONT_RELOAD_PROMPT).astype(
+            np.int32) for _ in range(CONT_RELOAD_INFLIGHT + 1)]
+        results = [None] * len(rprompts)
+
+        def go(i):
+            results[i] = _post(url, {"prompt": rprompts[i].tolist(),
+                                     "max_new_tokens": CONT_MAX_NEW})
+
+        admitted0 = batcher.stats.as_dict()["admitted"]
+        inflight = [threading.Thread(target=go, args=(i,))
+                    for i in range(CONT_RELOAD_INFLIGHT)]
+        for t in inflight:
+            t.start()
+        deadline = time.monotonic() + 120
+        while (batcher.stats.as_dict()["admitted"] - admitted0
+               < CONT_RELOAD_INFLIGHT
+               or batcher.stats.as_dict()["queue_depth"]) and \
+                time.monotonic() < deadline:
+            time.sleep(0.005)
+        reload = _post(server.address + "/admin/reload", {})
+        it_swap = batcher.scheduler.snapshot()["iterations"]
+        late = threading.Thread(target=go, args=(CONT_RELOAD_INFLIGHT,))
+        late.start()
+        for t in inflight + [late]:
+            t.join(timeout=600)
+        ids = {r["request_id"] for r in results[:-1]}
+        retired = [s["iter_retire"] for s in reqtrace.get_plane()
+                   .audit_snapshot() if s["request_id"] in ids]
+        spanned = len(retired) == len(ids) and min(retired) > it_swap
+        old = dec.generate(old_module, np.stack(
+            rprompts[:CONT_RELOAD_INFLIGHT]), CONT_MAX_NEW)
+        new = engine.generate(rprompts[-1][None], CONT_MAX_NEW)
+        c_old = tie_check([r["tokens"] for r in results[:-1]],
+                          rprompts[:-1], old, tol)
+        c_new = tie_check([results[-1]["tokens"]], rprompts[-1:], new, tol)
+        differ = results[-1]["tokens"] != dec.generate(
+            old_module, rprompts[-1][None], CONT_MAX_NEW)["tokens"][0].tolist()
+        say("continuous", f"14c reload with {CONT_RELOAD_INFLIGHT} requests "
+                          f"of {CONT_MAX_NEW} new tokens in flight (swapped "
+                          f"by iteration {it_swap}, they retired at "
+                          f"{sorted(retired)}): {reload}; "
+                          f"in-flight vs the old checkpoint's whole-batch "
+                          f"generate {c_old}; the request after the drain vs "
+                          f"the new checkpoint's {c_new} (differs from the "
+                          f"old's: {differ}); captures {backend.captures}, "
+                          f"pinned step {backend.params_step}")
+        if not (reload["reloaded"] and reload["params_step"] == 2) or \
+                not spanned or c_old["mismatch"] or c_new["mismatch"] or not differ or \
+                backend.captures != 2 * int(backend.graph) or \
+                backend.params_step != 2:
+            raise AssertionError("14c: the hot reload under traffic failed")
+    finally:
+        cont_close(client, metrics, server)
+    return {"wall_s": wall, "check": check, "snapshot": snap,
+            "reload_old": c_old, "reload_new": c_new}
+
+
+def bench_bodies() -> list:
+    """14d's long-tail mix: prompt 64, 32 new tokens, every 10th request
+    256 (the 8:1 long-to-short ratio of the JAX bench's continuous
+    cell)."""
+    rng = np.random.default_rng(23)
+    return [{"prompt": rng.integers(0, LM_4K[1], LM_PROMPT).tolist(),
+             "max_new_tokens": (CONT_BENCH_LONG if i % 10 == 9
+                                else CONT_BENCH_SHORT)}
+            for i in range(CONT_BENCH_REQUESTS)]
+
+
+def phase_cont_bench(card: str, work: str) -> dict:
+    """14d: whole-batch against continuous at an equal KV token budget,
+    closed loop, in turns; then the slot step's graph time and the card's
+    busy share over profiled iterations. No bar."""
+    from distributed_tensorflow_tpu_torch.serving import reqtrace
+    from distributed_tensorflow_tpu_torch.utils.profiling import busy_share
+
+    logdir = os.path.join(work, "cont-bench")
+    cont_checkpoint(logdir, 1, seed=0)
+    bodies = bench_bodies()
+    new_tokens = sum(b["max_new_tokens"] for b in bodies)
+    arms = {
+        "whole_batch": cont_stack(logdir, "--serve_max_batch",
+                                  str(CONT_WHOLE_BATCH)),
+        "continuous": cont_stack(logdir, "--serve_scheduler", "continuous",
+                                 "--serve_slots", str(CONT_SLOTS),
+                                 "--serve_kv_pages", str(CONT_KV_PAGES),
+                                 "--serve_kv_page", str(CONT_PAGE))}
+    rows = {name: [] for name in arms}
+    try:
+        for name, (_e, _c, _m, server) in arms.items():  # warm-up
+            post_all(server.address + "/v1/generate", bodies[:4], 4)
+        for name in ("whole_batch", "continuous", "continuous",
+                     "whole_batch"):
+            _engine, client, _metrics, server = arms[name]
+            plane = reqtrace.configure_from_flags(flags.FLAGS)
+            t0 = time.perf_counter()
+            _outs, lat = post_all(server.address + "/v1/generate", bodies,
+                                  CONT_BENCH_CLIENTS)
+            wall = time.perf_counter() - t0
+            tail = plane.tail_report()["routes"]["generate"]
+            qw = max(e["phases"]["queue_wait"]["p99_ms"]
+                     for e in tail.values())
+            lat_ms = np.asarray(lat) * 1e3
+            row = {"tokens_per_s": new_tokens / wall,
+                   "p50_ms": float(np.percentile(lat_ms, 50)),
+                   "p99_ms": float(np.percentile(lat_ms, 99)),
+                   "queue_wait_p99_ms": qw, "wall_s": wall}
+            sched = getattr(client.generate_batcher, "scheduler", None)
+            row["kv_pages_high_water"] = (
+                sched.snapshot()["kv_pages"]["pages_high_water"]
+                if sched is not None else None)
+            rows[name].append(row)
+            say("times", f"14d {name}: {CONT_BENCH_REQUESTS} requests "
+                         f"from {CONT_BENCH_CLIENTS} closed-loop clients in "
+                         f"{wall:.3f} s: {row['tokens_per_s']:.1f} generated "
+                         f"tokens/s, request p50 {row['p50_ms']:.3f} ms, p99 "
+                         f"{row['p99_ms']:.3f} ms, queue_wait p99 {qw:.3f} "
+                         f"ms (tail block), KV pages high water "
+                         f"{row['kv_pages_high_water']} | {card}")
+        # the slot step alone: 12 live slots at the mixed positions
+        backend = arms["continuous"][1].generate_batcher.scheduler.backend
+        feed = slot_feed(0, seed=29)
+        step_ms = []
+        for _ in range(CONT_PROFILE_ITERS):
+            t0 = time.perf_counter()
+            backend.step(*feed)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms = None
+        if torch.device(CONT_DEVICE).type == "cuda":
+            device_ms = cuda_ms(lambda: backend._graph.replay(),
+                                reps=CONT_PROFILE_ITERS)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(_PROFILE_MARGIN_S)  # the loop's margins, same reason
+            with torch.profiler.record_function(PROFILED_STEPS):
+                for _ in range(CONT_PROFILE_ITERS):
+                    backend.step(*feed)
+                torch.cuda.synchronize(CONT_DEVICE)
+            time.sleep(_PROFILE_MARGIN_S)
+        busy = busy_share(prof.events(), window=PROFILED_STEPS)
+        trace = os.path.join(work, "cont-step-trace.json")
+        prof.export_chrome_trace(trace)
+        tk = trace_kernels(trace, CONT_PROFILE_ITERS)
+        say("times", f"14d continuous slot step ({CONT_SLOTS} slots, "
+                     f"{CONT_KV_PAGES} pages of {CONT_PAGE}): "
+                     f"{np.mean(step_ms):.4f} ms an iteration on the host "
+                     f"clock with the readback, graph replay "
+                     f"{device_ms if device_ms is None else round(device_ms, 4)}"
+                     f" ms on the card (CUDA events), busy share "
+                     f"{busy} over {CONT_PROFILE_ITERS} profiled iterations; "
+                     f"{tk['kernels_per_step']:.1f} kernels, "
+                     f"{tk['busy_us_per_step']:.1f} us of them and "
+                     f"{tk['idle_us_per_step']:.1f} us idle between them an "
+                     f"iteration; top kernels (us an iteration) "
+                     f"{[(n, round(t, 1)) for n, t in tk['top_us_per_step']]}"
+                     f" | {card}")
+    finally:
+        for _engine, client, metrics, server in arms.values():
+            cont_close(client, metrics, server)
+    return {"arms": rows, "step_ms": float(np.mean(step_ms)),
+            "device_ms": device_ms, "busy_share": busy, **tk}
+
+
+def phase_continuous(card: str, work: str) -> dict:
+    """Phase 14; ``fused_dense_relu`` must not launch over 14b-14d."""
+    t0 = time.perf_counter()
+    step = phase_slot_step(card, work)
+    fused_dense.LAUNCHES = 0  # the continuous serving paths start here
+    served = phase_cont_serve(card, work)
+    bench = phase_cont_bench(card, work)
+    launches = fused_dense.LAUNCHES  # ... and end here
+    say("continuous", f"fused_dense_relu launches over phase 14's paths: "
+                      f"{launches}; phase 14 took "
+                      f"{time.perf_counter() - t0:.1f} s")
+    if launches:
+        raise AssertionError("phase 14's paths launched fused_dense_relu")
+    return {"step": step, "serve": served, "bench": bench,
+            "launches": launches}
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -2697,6 +3257,7 @@ def main() -> int:
             complete = phase_lm_complete(card, work, data_dir, port, lm)
         finally:
             dist.destroy_process_group()
+        cont = phase_continuous(card, work)
     times = phase_times(card, served)
     kernels = []
     for tag in DTYPES:
@@ -2707,7 +3268,8 @@ def main() -> int:
                    "ps_worker0": ps[tag]["launches"],
                    "zero3_overlap": zeroed[tag]["launches"],
                    "lm_train_and_serve": lm["launches"],
-                   "lm_device_moe_zero": complete["launches"]}
+                   "lm_device_moe_zero": complete["launches"],
+                   "lm_continuous_serve": cont["launches"]}
         kernels.append({
             "name": f"fused_dense_relu[{tag}]", "route": "cuda",
             "variant": "tma", "source": KERNEL_SRC, "replaces": TPU_KERNEL,

@@ -4,8 +4,9 @@
 The counterpart of ``distributed_tensorflow_tpu/flags.py``: the same
 lazily-parsed ``FLAGS`` singleton, ``DEFINE_*`` functions, parse-time
 validators and ``run(main)``. ``define_flags`` holds the flags the serving
-routes (predict, generate) and model construction read, plus the
-port-only ``--device``; ``define_reference_flags`` adds
+routes (predict, generate), the continuous scheduler, the serving
+telemetry, request plane and fault injection, and model construction
+read, plus the port-only ``--device``; ``define_reference_flags`` adds
 the reference's 10 flags and the flags the local, sync and ps training
 loops read.
 Names, defaults and meanings match the JAX package's, so one command line
@@ -87,6 +88,12 @@ def _parse_bool(s):
 
 
 FLAGS = _FlagValues()
+
+# the request plane's flag defaults, shared by the DEFINE_* calls and the
+# telemetry=false checks, so a retuned default cannot start rejecting a
+# plain --telemetry=false
+_REQTRACE_RING_DEFAULT = 512
+_REQTRACE_EXEMPLARS_DEFAULT = 5
 
 
 def DEFINE_string(name: str, default: str | None, help_str: str = ""):
@@ -203,10 +210,89 @@ def define_flags():
                  "for generate requests (0 = greedy)")
     DEFINE_string("serve_scheduler", "whole_batch", "Generate-route "
                   "scheduler: 'whole_batch' (DynamicBatcher: one "
-                  "microbatch committed for its entire generation); "
-                  "'continuous' (the paged-KV slot scheduler) is not yet "
-                  "ported and raises")
+                  "microbatch committed for its entire generation) or "
+                  "'continuous' (iteration-level slot scheduler over a "
+                  "paged KV cache, serving/continuous.py: requests "
+                  "admit and retire between decode steps, on a card one "
+                  "CUDA graph replay a step; greedy tokens equal "
+                  "whole_batch's but at near ties). Continuous serves "
+                  "--model lm on one device")
+    DEFINE_integer("serve_slots", 4, "Continuous scheduler: fixed number "
+                   "of batch slots (concurrent in-flight generations). "
+                   "Must be >= 2 (slot width >= 2 keeps the decode "
+                   "contractions GEMMs, the floor the whole-batch decode "
+                   "keeps too)")
+    DEFINE_integer("serve_kv_page", 16, "Continuous scheduler: tokens per "
+                   "KV-cache page; must divide --seq_len (a slot's "
+                   "logical pages tile the context window exactly)")
+    DEFINE_integer("serve_kv_pages", 0, "Continuous scheduler: physical KV "
+                   "pages in the pool. 0 = full provisioning (serve_slots "
+                   "* seq_len / serve_kv_page: every slot can hold a "
+                   "max-length request); smaller pools oversubscribe "
+                   "slots against pages and admission gates on the page "
+                   "commitment. Must hold at least one full-context "
+                   "request (seq_len / serve_kv_page)")
+    DEFINE_float("serve_hbm_headroom_pct", 0.0, "Drain floor: /healthz "
+                 "turns 503 (ok=false) when the continuous scheduler's "
+                 "uncommitted KV pages fall below this percent of the "
+                 "pool, so a router drains the server before admissions "
+                 "fail. 0 = off. The port has no device-memory meter "
+                 "yet, so the floor judges the KV pool only")
+    DEFINE_float("slo_p99_ms", 0.0, "Serving latency SLO (the request "
+                 "plane, serving/reqtrace.py): a request is compliant "
+                 "when it completes ok within this many milliseconds. "
+                 "Arms the error-budget ledger: the /metrics slo block "
+                 "(compliant_pct, budget_remaining, fast/slow burn "
+                 "rates) and the /healthz 503 on a fast-burn breach. "
+                 "0 = SLO accounting off (phase timelines and tail "
+                 "attribution still run)")
+    DEFINE_float("slo_target_pct", 99.0, "The SLO compliance target: this "
+                 "percent of requests are promised within --slo_p99_ms; "
+                 "the remainder is the error budget the burn rates are "
+                 "measured against. Must be in (50, 100]; only "
+                 "meaningful with --slo_p99_ms > 0")
+    DEFINE_integer("reqtrace_ring", _REQTRACE_RING_DEFAULT, "Bounded "
+                   "per-request audit ring (the request plane): how many "
+                   "finished request summaries the server keeps for the "
+                   "/metrics tail exemplars")
+    DEFINE_integer("reqtrace_exemplars", _REQTRACE_EXEMPLARS_DEFAULT,
+                   "How many worst live exemplars (request_id + phase "
+                   "breakdown, by total latency) the /metrics tail block "
+                   "names; must be in [1, 64]")
+    DEFINE_boolean("telemetry", True, "The observability spine "
+                   "(utils/telemetry.py): span tracing into "
+                   "<logdir>/spans-serve-<N>.jsonl, the crash flight "
+                   "recorder (<logdir>/flightrec-serve-<N>.jsonl) and the "
+                   "request plane. =false disables recording entirely "
+                   "(request ids still mint and echo). Read by the "
+                   "serving entry point; the training loop's spans and "
+                   "step-time scalars under it are not ported yet")
+    DEFINE_float("watchdog_s", 0.0, "If > 0, arm a hang watchdog around "
+                 "every serving batch and scheduler iteration: one still "
+                 "incomplete after this many seconds dumps all-thread "
+                 "stacks, the last spans and its context to stderr and "
+                 "the flight recorder. 0 = off. The training loop's "
+                 "watchdog around steps and collectives is not ported "
+                 "yet")
+    DEFINE_boolean("watchdog_abort", False, "After a watchdog report, "
+                   "hard-exit the process (status 124) instead of "
+                   "waiting on. Requires --watchdog_s > 0")
+    DEFINE_integer("flightrec_events", 512, "Flight-recorder ring length: "
+                   "how many recent spans/scalars/notes the crash "
+                   "postmortem (flightrec-<host>.jsonl) holds")
+    DEFINE_string("fault_spec", "", "Deterministic fault injection "
+                  "(utils/faults.py): comma-separated rules, each "
+                  "point[:key=value]... — e.g. 'serve_batch:mode=error', "
+                  "'serve_reload:mode=torn_file'. Empty (default) injects "
+                  "nothing; the DTT_FAULT_SPEC env var is the fallback "
+                  "for subprocesses. The serving points (serve_admit, "
+                  "serve_batch, serve_reload) are wired; the training "
+                  "points parse but are not called yet")
     FLAGS._register_validator(_validate_flags)
+    FLAGS._register_validator(_validate_serving_scheduler_flags)
+    FLAGS._register_validator(_validate_telemetry_flags)
+    FLAGS._register_validator(_validate_reqtrace_flags)
+    FLAGS._register_validator(_validate_fault_spec)
 
 
 def define_reference_flags():
@@ -581,3 +667,144 @@ def _validate_flags(values: dict):
              "must be > 0 (a per-expert capacity factor)")
     _require(values, "moe_aux", lambda v: float(v) >= 0,
              "must be >= 0 (the load-balance coefficient)")
+
+
+def _validate_serving_scheduler_flags(values: dict):
+    """The JAX package's parse-time checks of the continuous scheduler's
+    flags (``--serve_slots``, ``--serve_kv_page``, ``--serve_kv_pages``)
+    and of the drain floor's range."""
+    slots = values.get("serve_slots")
+    if slots is not None and int(slots) < 2:
+        raise ValueError(
+            f"--serve_slots={slots} must be >= 2 (slot width >= 2 "
+            f"keeps decode on the GEMM kernel — the bitwise-parity "
+            f"floor)")
+    page = values.get("serve_kv_page")
+    if page is not None and int(page) < 1:
+        raise ValueError(f"--serve_kv_page={page} must be >= 1")
+    seq_len = int(values.get("seq_len") or 0)
+    if page is not None and seq_len and seq_len % int(page):
+        raise ValueError(
+            f"--serve_kv_page={page} must divide --seq_len="
+            f"{seq_len} (a slot's pages tile the context window)")
+    pages = values.get("serve_kv_pages")
+    if pages is not None and int(pages) < 0:
+        raise ValueError(
+            f"--serve_kv_pages={pages} must be >= 0 "
+            f"(0 = full provisioning)")
+    if pages and page and seq_len:
+        per_slot = -(-seq_len // int(page))
+        if int(pages) < per_slot:
+            raise ValueError(
+                f"--serve_kv_pages={pages} cannot hold one "
+                f"full-context request ({per_slot} pages of "
+                f"{page} tokens for --seq_len={seq_len})")
+    if values.get("serve_scheduler") == "continuous":
+        model = values.get("model")
+        if model is not None and model != "lm":
+            raise ValueError(
+                f"--serve_scheduler=continuous serves --model lm "
+                f"only (token decode); got --model={model!r}")
+    shp = values.get("serve_hbm_headroom_pct")
+    if shp is not None and not (0.0 <= float(shp) < 100.0):
+        raise ValueError(f"--serve_hbm_headroom_pct={shp} must be in "
+                         f"[0, 100) percent of the device limit "
+                         f"(0 = off; 100 would 503 a healthy replica)")
+
+
+def _validate_telemetry_flags(values: dict):
+    """The JAX package's parse-time telemetry checks: a negative watchdog
+    timeout, a watchdog under --telemetry=false, an abort flag with no
+    watchdog, a zero-length flight ring."""
+    wd = values.get("watchdog_s")
+    wd = 0.0 if wd is None else float(wd)
+    if wd < 0:
+        raise ValueError(f"--watchdog_s={wd} must be >= 0 (0 = off)")
+    telemetry_flag = values.get("telemetry")
+    if wd > 0 and telemetry_flag is not None and not telemetry_flag:
+        raise ValueError(
+            "--watchdog_s > 0 with --telemetry=false is silently inert "
+            "(the watchdog is part of the telemetry spine and is never "
+            "installed when telemetry is off) — drop --watchdog_s or "
+            "re-enable --telemetry")
+    if values.get("watchdog_abort") and wd <= 0:
+        raise ValueError(
+            "--watchdog_abort only applies with --watchdog_s > 0 (no "
+            "watchdog ever fires without a timeout); without it the "
+            "flag would silently change nothing — drop it or set "
+            "--watchdog_s")
+    fe = values.get("flightrec_events")
+    if fe is not None and int(fe) < 1:
+        raise ValueError(f"--flightrec_events={fe} must be >= 1 (the "
+                         f"crash postmortem needs at least one slot; "
+                         f"use --telemetry=false to disable telemetry)")
+
+
+def _validate_reqtrace_flags(values: dict):
+    """The JAX package's parse-time request-plane checks: out-of-bounds
+    --slo_*/--reqtrace_* values, an SLO target without the SLO armed, and
+    request-plane knobs set under --telemetry=false (the plane rides the
+    telemetry spine and would be silently inert)."""
+    p99 = values.get("slo_p99_ms")
+    if p99 is not None and float(p99) < 0:
+        raise ValueError(f"--slo_p99_ms={p99} must be >= 0 ms "
+                         f"(0 = SLO accounting off)")
+    tgt = values.get("slo_target_pct")
+    if tgt is not None and not (50.0 < float(tgt) <= 100.0):
+        raise ValueError(f"--slo_target_pct={tgt} must be in (50, 100] "
+                         f"(the promised compliant fraction; <= 50 "
+                         f"leaves no meaningful error budget)")
+    if tgt is not None and float(tgt) != 99.0 \
+            and (p99 is None or float(p99) <= 0):
+        raise ValueError(
+            "--slo_target_pct without --slo_p99_ms > 0 is silently "
+            "inert (the target only parameterizes the armed "
+            "error-budget ledger) — set --slo_p99_ms or drop the "
+            "target")
+    ring = values.get("reqtrace_ring")
+    if ring is not None and not (16 <= int(ring) <= 1_048_576):
+        raise ValueError(f"--reqtrace_ring={ring} must be in "
+                         f"[16, 1048576] retained request summaries")
+    ex = values.get("reqtrace_exemplars")
+    if ex is not None and not (1 <= int(ex) <= 64):
+        raise ValueError(f"--reqtrace_exemplars={ex} must be in "
+                         f"[1, 64] named tail exemplars")
+    telemetry_flag = values.get("telemetry")
+    if telemetry_flag is None or telemetry_flag:
+        return
+    if p99 is not None and float(p99) > 0:
+        raise ValueError(
+            "--slo_p99_ms > 0 with --telemetry=false is silently inert "
+            "(the request plane's ledger, audit ring, and req:* spans "
+            "ride the telemetry spine) — drop it or re-enable "
+            "--telemetry")
+    if ring is not None and int(ring) != _REQTRACE_RING_DEFAULT:
+        raise ValueError(
+            "--reqtrace_ring with --telemetry=false is silently inert "
+            "(the audit ring is part of the request plane, which "
+            "--telemetry=false leaves unconfigured) — drop it or "
+            "re-enable --telemetry")
+    if ex is not None and int(ex) != _REQTRACE_EXEMPLARS_DEFAULT:
+        raise ValueError(
+            "--reqtrace_exemplars with --telemetry=false is silently "
+            "inert (the tail block is part of the request plane, which "
+            "--telemetry=false leaves unconfigured) — drop it or "
+            "re-enable --telemetry")
+
+
+def _validate_fault_spec(values: dict):
+    """Parse-time --fault_spec validation: a mistyped point or mode fails
+    at the command line with the registered points, not as a rule that
+    never fires."""
+    spec = values.get("fault_spec") or ""
+    if not spec:
+        return
+    from distributed_tensorflow_tpu_torch.utils.faults import (
+        FaultSpecError,
+        parse_fault_spec,
+    )
+
+    try:
+        parse_fault_spec(spec)
+    except FaultSpecError as e:
+        raise ValueError(f"--fault_spec: {e}") from None

@@ -1,5 +1,5 @@
 """Serving: checkpoint-to-traffic inference for the predict route and,
-for the causal LM, the generate route."""
+for the causal LM, the generate route (whole-batch or continuous)."""
 
 from distributed_tensorflow_tpu_torch.serving.batcher import (  # noqa: F401
     BatcherStats,
@@ -8,11 +8,22 @@ from distributed_tensorflow_tpu_torch.serving.batcher import (  # noqa: F401
     RejectedError,
     pow2_bucket,
 )
+from distributed_tensorflow_tpu_torch.serving.continuous import (  # noqa: F401
+    ContinuousBatcher,
+    ContinuousScheduler,
+    EngineSlotBackend,
+    HostSlotBackend,
+)
 from distributed_tensorflow_tpu_torch.serving.engine import (  # noqa: F401
     CheckpointWatcher,
     InferenceEngine,
     NoCheckpointError,
     resolve_device,
+)
+from distributed_tensorflow_tpu_torch.serving.kvpage import (  # noqa: F401
+    PageAllocator,
+    PageReservation,
+    pages_needed,
 )
 from distributed_tensorflow_tpu_torch.serving.server import (  # noqa: F401
     InferenceServer,

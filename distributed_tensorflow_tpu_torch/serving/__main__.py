@@ -4,7 +4,8 @@
         --pallas [--bf16] [--serve_port 8000] [--device cuda]
     python -m distributed_tensorflow_tpu_torch.serving --logdir /tmp/lm_logs \\
         --model lm --dataset lm --seq_len 4096 --vocab_size 64 \\
-        --d_model 256 --num_heads 4 --num_blocks 4 [--bf16]
+        --d_model 256 --num_heads 4 --num_blocks 4 [--bf16] \\
+        [--serve_scheduler continuous --serve_slots 12]
 
 Builds the model the flags describe (``training.loop.build_model_for``),
 restores the newest checkpoint's params — written by either package —
@@ -13,7 +14,15 @@ through the verified fallback ladder, and serves JSON over HTTP
 watcher, and serving scalars in the logdir's serve_metrics.jsonl. With
 ``--model lm`` it also answers ``POST /v1/generate`` through the KV-cache
 decode (``serving/decode.py``; ``--serve_max_new_tokens``,
-``--serve_temperature``).
+``--serve_temperature``): whole-batch microbatches by default, or with
+``--serve_scheduler continuous`` the paged-KV slot scheduler
+(``serving/continuous.py``; ``--serve_slots``, ``--serve_kv_page``,
+``--serve_kv_pages``), one CUDA graph replay an iteration on a card.
+
+At start-up it configures fault injection (``--fault_spec``), the
+telemetry spine with job name ``serve`` (``spans-serve-0.jsonl`` and
+``flightrec-serve-0.jsonl`` in the logdir; ``--telemetry``,
+``--watchdog_s``) and the request plane (``--slo_*``, ``--reqtrace_*``).
 
 Runs on ``--device cuda`` (the default) and raises without a card; pass
 ``--device cpu`` to serve on the CPU.
@@ -66,16 +75,18 @@ def build_serving_stack(FLAGS):
         StreamingHistogram,
     )
 
+    from distributed_tensorflow_tpu_torch.serving import reqtrace
+    from distributed_tensorflow_tpu_torch.utils import faults, telemetry
+
     # f32 means f32 on the card: cuDNN would run f32 convs in TF32 by
     # default, and the JAX reference runs at `highest` precision
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if FLAGS.model == "lm" and FLAGS.serve_scheduler == "continuous":
-        raise NotImplementedError(
-            "--serve_scheduler continuous (the paged-KV slot scheduler, "
-            "serving/continuous.py) is not yet ported to "
-            "distributed_tensorflow_tpu_torch (ROADMAP queue 1, S4); use "
-            "--serve_scheduler whole_batch")
+    faults.configure_from_flags(FLAGS)
+    # job "serve": a server pointed at the trainer's logdir writes its own
+    # spans-serve-N.jsonl and flightrec-serve-N.jsonl
+    telemetry.configure_from_flags(FLAGS, job_name="serve")
+    reqtrace.configure_from_flags(FLAGS)
     model = build_model_for(FLAGS, _dataset_meta(FLAGS))
     engine = InferenceEngine(model, FLAGS.logdir, device=FLAGS.device,
                              max_batch=FLAGS.serve_max_batch)
@@ -101,11 +112,27 @@ def build_serving_stack(FLAGS):
     if FLAGS.model == "lm":
         gen_metrics = ServingMetrics(logger, engine, name="generate",
                                      emit_every=FLAGS.serve_metrics_every)
-        generate_b = DynamicBatcher(make_generate_runner(engine),
-                                    group_key=generate_group_key,
-                                    latency=StreamingHistogram(),
-                                    on_batch=gen_metrics.on_batch,
-                                    name="generate", **common)
+        if FLAGS.serve_scheduler == "continuous":
+            from distributed_tensorflow_tpu_torch.serving.continuous import (
+                ContinuousBatcher,
+                EngineSlotBackend,
+            )
+
+            backend = EngineSlotBackend(
+                engine, n_slots=FLAGS.serve_slots,
+                page_size=FLAGS.serve_kv_page,
+                num_pages=FLAGS.serve_kv_pages)
+            generate_b = ContinuousBatcher(
+                backend, queue_depth=FLAGS.serve_queue_depth,
+                default_timeout_ms=FLAGS.serve_timeout_ms,
+                latency=StreamingHistogram(),
+                on_iteration=gen_metrics.on_batch, name="generate")
+        else:
+            generate_b = DynamicBatcher(make_generate_runner(engine),
+                                        group_key=generate_group_key,
+                                        latency=StreamingHistogram(),
+                                        on_batch=gen_metrics.on_batch,
+                                        name="generate", **common)
     # both batchers ride the constructor: the HTTP handler threads read
     # the client once the server starts
     client = InProcessClient(
@@ -127,12 +154,13 @@ def main(argv):
     engine, client, watcher, metrics = build_serving_stack(FLAGS)
     if watcher is not None:
         watcher.start()
-    server = InferenceServer(engine, client, host=FLAGS.serve_host,
-                             port=FLAGS.serve_port)
+    server = InferenceServer(
+        engine, client, host=FLAGS.serve_host, port=FLAGS.serve_port,
+        hbm_headroom_floor_pct=FLAGS.serve_hbm_headroom_pct)
     routes = "/v1/predict, /v1/generate" if client.generate_batcher \
         else "/v1/predict"
-    print(f"serving on {server.address} (POST {routes}; GET /healthz, "
-          f"/stats, /metrics)")
+    print(f"serving on {server.address} (POST {routes}, /admin/reload; "
+          f"GET /healthz, /stats, /metrics)")
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -145,6 +173,10 @@ def main(argv):
                 b.close(drain=False)
         server.close()
         metrics.logger.close()
+        # the last flush: a short-lived server must not lose its spans
+        from distributed_tensorflow_tpu_torch.utils import telemetry
+
+        telemetry.get_tracer().flush()
     return 0
 
 

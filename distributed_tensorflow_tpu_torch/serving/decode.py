@@ -18,12 +18,19 @@ batched forward. On XLA:CPU this makes a decode row bitwise equal to the
 full-prefix forward's; under cuBLAS that is measured, not assumed
 (``chip_smoke.py`` phase 12).
 
-The paged slot pools and step of the continuous scheduler
-(``make_slot_pools``, ``make_slot_step``) come with
-``serving/continuous.py``.
+``make_slot_pools`` and ``make_slot_step`` are the paged form the
+continuous scheduler (``serving/continuous.py``) runs: the same step over
+``S`` independent slots, each at its own position, against a pool of KV
+pages instead of a dense per-row cache.
+
+``generate`` notes its prompt pass and its decode loop to the request
+plane as the ``prefill`` and ``decode`` phases of the requests in the
+current microbatch.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -40,6 +47,7 @@ from distributed_tensorflow_tpu_torch.ops import nn as ops
 from distributed_tensorflow_tpu_torch.ops.attention import (
     multi_head_attention,
 )
+from distributed_tensorflow_tpu_torch.serving import reqtrace
 
 
 def check_decodable(model) -> None:
@@ -80,6 +88,37 @@ def make_prefill(model):
     return prefill
 
 
+def _decode_tick(module, tok, pos, masked, write_read, cd, root_dh):
+    """The body both decode steps share: one token a row through every
+    block, attending against a dense ``(B, C, H, Dh)`` view of the cache.
+
+    ``tok`` (B,) int64; ``pos`` the rows' position embeddings, broadcast
+    against (B, 1, d); ``masked`` the positions past each row's own,
+    broadcast against the (B, H, 1, C) scores. ``write_read(i, k, v)``
+    stores block ``i``'s new (k, v) and returns its dense view: the
+    whole-batch cache itself, or the slot step's gather of its pages.
+    Returns the logits (B, V) in float32."""
+    h = F.embedding(tok[:, None], module.tok)  # (B, 1, d)
+    h = h + pos.to(h.dtype)
+    if cd is not None:
+        h = h.to(cd)
+    for i, blk in enumerate(module.blocks):
+        y = _layernorm(h, blk.ln1_g, blk.ln1_b)
+        q, k, v = _qkv(y, blk)
+        k_cache, v_cache = write_read(i, k, v)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k_cache).float()
+        s = (s / root_dh).masked_fill(masked, -torch.inf)
+        p = torch.softmax(s, dim=-1)
+        # p @ V at query width 2, row 0 kept (see the module doc)
+        p2 = torch.cat([p, p], dim=2).to(q.dtype)
+        a = torch.einsum("bhqk,bkhd->bqhd", p2, v_cache)[:, :1]
+        a = a.reshape(*a.shape[:2], -1)  # (B, 1, H*Dh)
+        h = h + ops.dense(a, blk.proj, compute_dtype=cd)
+        h = _mlp_half(h, blk, cd)
+    h = _layernorm(h, module.ln_f["g"], module.ln_f["b"])
+    return module.logits(h)[:, 0]
+
+
 def make_decode_step(model):
     """(module, cache, tok (B,) int, t int) -> (logits (B, V) float32,
     cache): one decode tick at absolute position ``t``, the cache updated
@@ -90,28 +129,96 @@ def make_decode_step(model):
     root_dh = float(np.sqrt(np.float32(model.d_model // model.num_heads)))
 
     def step(module, cache, tok, t: int):
-        h = F.embedding(tok[:, None], module.tok)  # (B, 1, d)
-        h = h + module.pos[t:t + 1].to(h.dtype)
-        if cd is not None:
-            h = h.to(cd)
         # row t of the causal mask over the full capacity
-        masked = torch.arange(capacity, device=h.device) > t
-        for blk, (k_cache, v_cache) in zip(module.blocks, cache):
-            y = _layernorm(h, blk.ln1_g, blk.ln1_b)
-            q, k, v = _qkv(y, blk)
+        masked = torch.arange(capacity, device=tok.device) > t
+
+        def write_read(i, k, v):
+            k_cache, v_cache = cache[i]
             k_cache[:, t] = k[:, 0].to(k_cache.dtype)
             v_cache[:, t] = v[:, 0].to(v_cache.dtype)
-            s = torch.einsum("bqhd,bkhd->bhqk", q, k_cache).float()
-            s = (s / root_dh).masked_fill(masked, -torch.inf)
-            p = torch.softmax(s, dim=-1)
-            # p @ V at query width 2, row 0 kept (see the module doc)
-            p2 = torch.cat([p, p], dim=2).to(q.dtype)
-            a = torch.einsum("bhqk,bkhd->bqhd", p2, v_cache)[:, :1]
-            a = a.reshape(*a.shape[:2], -1)  # (B, 1, H*Dh)
-            h = h + ops.dense(a, blk.proj, compute_dtype=cd)
-            h = _mlp_half(h, blk, cd)
-        h = _layernorm(h, module.ln_f["g"], module.ln_f["b"])
-        return module.logits(h)[:, 0], cache
+            return k_cache, v_cache
+
+        logits = _decode_tick(module, tok, module.pos[t:t + 1], masked,
+                              write_read, cd, root_dh)
+        return logits, cache
+
+    return step
+
+
+def make_slot_pools(model, page_size: int, num_pages: int,
+                    device=None) -> tuple:
+    """The paged KV pools of the slot step: a tuple, one ``(k_pool,
+    v_pool)`` pair per block, each ``(num_pages + 1, page_size, H, Dh)``
+    zeros in the cache dtype (the compute dtype, else float32) on
+    ``device``.
+
+    Row 0 is the scratch page: a free slot's page-table row is all zeros,
+    so its reads (masked, discarded) and its writes land there and never
+    on a live request's pages."""
+    check_decodable(model)
+    dh = model.d_model // model.num_heads
+    dtype = model.compute_dtype or torch.float32
+    shape = (num_pages + 1, page_size, model.num_heads, dh)
+    return tuple((torch.zeros(shape, dtype=dtype, device=device),
+                  torch.zeros(shape, dtype=dtype, device=device))
+                 for _ in range(model.num_blocks))
+
+
+def make_slot_step(model, page_size: int):
+    """(module, pools, page_table (S, P) int32, tok (S,) int32, t (S,)
+    int32) -> logits (S, V) float32: one decode tick over ``S``
+    independent slots against the paged cache, the pools written in
+    place.
+
+    Slot ``i`` feeds token ``tok[i]`` at its own position ``t[i]``;
+    ``page_table[i, j]`` is the pool row that holds logical page ``j`` of
+    slot ``i`` (0, the scratch page, for free or unmapped entries). The
+    step writes the new (k, v) into ``pool[dest, offset]`` with ``dest =
+    page_table[i, t // page_size]`` and ``offset = t % page_size``, then
+    attends each slot's query against its gathered dense view
+    ``pool[page_table].reshape(S, capacity, H, Dh)``. Everything else is
+    ``make_decode_step``'s body (``_decode_tick``, shared): the layer
+    norm, the fused qkv, row ``t[i]`` of the causal mask over the full
+    capacity, the scale after the score product, the float32 softmax,
+    the width-2 ``p @ v``, the MLP half, ``ln_f`` and the head. A free
+    slot runs the same ops on scratch contents; every score past its
+    ``t`` is masked, and the scheduler discards its logits.
+
+    Every shape is static (slots, page table, pools), so the step can be
+    captured once into a CUDA graph and replayed however requests come
+    and go (``continuous.EngineSlotBackend``)."""
+    check_decodable(model)
+    cd = model.compute_dtype
+    capacity = model.seq_len
+    heads = model.num_heads
+    dh = model.d_model // heads
+    if page_size < 1 or capacity % page_size:
+        raise ValueError(
+            f"page_size ({page_size}) must be >= 1 and divide the cache "
+            f"capacity ({capacity}) so a slot's logical pages tile it "
+            f"exactly")
+    root_dh = float(np.sqrt(np.float32(dh)))
+
+    def step(module, pools, page_table, tok, t):
+        s_count = tok.shape[0]
+        t = t.long()
+        table = page_table.long()
+        # row t[i] of the causal mask per slot over the full capacity
+        masked = (torch.arange(capacity, device=tok.device)[None, :]
+                  > t[:, None])[:, None, None, :]
+        rows = torch.arange(s_count, device=tok.device)
+        dest = table[rows, t // page_size]  # (S,) pool rows
+        offset = t % page_size
+
+        def write_read(i, k, v):
+            k_pool, v_pool = pools[i]
+            k_pool[dest, offset] = k[:, 0].to(k_pool.dtype)
+            v_pool[dest, offset] = v[:, 0].to(v_pool.dtype)
+            return (k_pool[table].reshape(s_count, capacity, heads, dh),
+                    v_pool[table].reshape(s_count, capacity, heads, dh))
+
+        return _decode_tick(module, tok.long(), module.pos[t][:, None, :],
+                            masked, write_read, cd, root_dh)
 
     return step
 
@@ -176,9 +283,14 @@ def generate(model, prompts, max_new_tokens: int, *,
     out_tokens = [prompts.astype(np.int32)]
     out_logits = []
     with torch.inference_mode():
+        # the prompt pass and its first readback are the "prefill" phase,
+        # the loop below the "decode" phase with a tick a token
+        t0 = time.perf_counter()
         logits_all, cache = prefill_fn(model, torch.from_numpy(padded).to(
             device))
         step_logits = logits_all[:, p - 1].cpu().numpy()
+        reqtrace.note_phase("prefill", time.perf_counter() - t0)
+        t0 = time.perf_counter()
         for i in range(n):
             out_logits.append(step_logits)
             if temperature > 0.0:
@@ -192,5 +304,6 @@ def generate(model, prompts, max_new_tokens: int, *,
                     model, cache, torch.from_numpy(tok).long().to(device),
                     p + i)
                 step_logits = step_logits.cpu().numpy()
+    reqtrace.note_phase("decode", time.perf_counter() - t0, ticks=n)
     return {"tokens": np.concatenate(out_tokens, axis=1)[:b_real],
             "logits": np.stack(out_logits, axis=1)[:b_real]}

@@ -11,12 +11,17 @@ shapes to a handful.
 Hot-reload: a ``CheckpointWatcher`` thread polls the directory; a newer
 step restores off the serving path into a fresh copy of the model, and
 the reference swaps atomically between microbatches — in-flight batches
-keep the module they started with, so nothing is dropped.
+keep the module they started with, so nothing is dropped. A reload runs
+in a ``serve_reload`` span after the ``serve_reload`` fault point (a file
+mode there corrupts the newest set, and the ladder walks back).
 
 ``generate`` decodes a causal LM's prompts through the KV cache of
-``serving/decode.py``, one (prefill, step) pair per engine.
+``serving/decode.py``, one (prefill, step) pair per engine. Both routes
+stamp the served step on the requests of the current microbatch
+(``reqtrace.note_served_step``); the forward and the decode loop are
+their ``prefill`` and ``decode`` phases.
 
-Mesh and tensor-parallel placement come with later slices.
+Mesh and tensor-parallel placement come with a later slice.
 """
 
 from __future__ import annotations
@@ -32,7 +37,10 @@ from distributed_tensorflow_tpu_torch.checkpoint.checkpoint import (
     latest_checkpoint,
     restore_params_with_fallback,
 )
+from distributed_tensorflow_tpu_torch.serving import reqtrace
 from distributed_tensorflow_tpu_torch.serving.batcher import pow2_bucket
+from distributed_tensorflow_tpu_torch.utils.faults import fault_point
+from distributed_tensorflow_tpu_torch.utils.telemetry import trace_span
 from distributed_tensorflow_tpu_torch.utils.pytree import (
     params_from_jax,
     params_to_numpy,
@@ -133,10 +141,15 @@ class InferenceEngine:
         if bucket > b:
             pad = np.zeros((bucket - b, *x.shape[1:]), x.dtype)
             x = np.concatenate([x, pad], axis=0)
-        module, _ = self.current()
+        module, step = self.current()
+        reqtrace.note_served_step(step)
+        # the forward and its readback are the predict route's "prefill"
+        t0 = time.perf_counter()
         with torch.inference_mode():
             out = module(torch.from_numpy(x).to(self.device))
-            return out[:b].float().cpu().numpy()
+            out = out[:b].float().cpu().numpy()
+        reqtrace.note_phase("prefill", time.perf_counter() - t0)
+        return out
 
     def generate(self, prompts, max_new_tokens: int, *,
                  temperature: float = 0.0, seed: int | None = None) -> dict:
@@ -163,7 +176,8 @@ class InferenceEngine:
                 self._decode_fns = (dec.make_prefill(self.model),
                                     dec.make_decode_step(self.model))
             fns = self._decode_fns
-        module, _ = self.current()
+        module, step = self.current()
+        reqtrace.note_served_step(step)
         generator = None
         if temperature > 0.0:
             if seed is None:
@@ -185,14 +199,18 @@ class InferenceEngine:
             found = latest_checkpoint(self.logdir)
             if found is None or found[1] <= self.step:
                 return None
-            return self._reload(found[1])
+            path, step = found
+            with trace_span("serve_reload", step=step):
+                return self._reload(path, step)
 
-    def _reload(self, step: int) -> dict:
+    def _reload(self, path: str, step: int) -> dict:
         t0 = time.monotonic()
         serving = self.step
         try:
+            fault_point("serve_reload", path=path, step=step)
             out = restore_params_with_fallback(self.logdir, self._template)
         except Exception as e:  # noqa: BLE001 — keep serving what we have
+            # ladder exhausted, an injected error, an unreadable directory
             with self._swap_lock:
                 self.counters["reload_failures"] += 1
             print(f"serving reload failed (still serving step {serving}): "

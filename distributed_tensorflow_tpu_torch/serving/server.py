@@ -7,17 +7,25 @@ stdlib only (``http.server``):
     POST /v1/predict   {"inputs": [...]}  ONE example       -> {"outputs"}
     POST /v1/generate  {"prompt": [ids], "max_new_tokens",
                         "temperature", "seed"}              -> {"tokens"}
+    POST /admin/reload                                      -> {"reloaded", "report"}
     GET  /healthz                                           -> {"ok", "step"}
     GET  /stats                                             -> counters + quantiles
     GET  /metrics                                           -> full serving JSON
 
 One example per request by design: batching is the server's job. A
-``RejectedError`` (queue full, deadline, closed) is 429, bad JSON or a
-bad request (an out-of-vocabulary prompt, a budget over the cap) 400, a
-request still running at the client's wait 504, anything else 500.
+``RejectedError`` (queue full, deadline, closed, injected admission
+fault) is 429, bad JSON or a bad request (an out-of-vocabulary prompt, a
+budget over the cap) 400, a request still running at the client's wait
+504, anything else 500. Every answer echoes the request_id; with the
+request plane configured a success also carries its disposition and
+phase breakdown.
 
-The admin reload route and the memory, KV-page and request-plane blocks
-of ``/metrics`` come with later slices.
+``/metrics`` carries the request plane's ``tail`` and ``slo`` blocks,
+``hbm`` with the continuous scheduler's ``kv_pages`` (the port has no
+device-memory meter yet, so that is all of ``hbm``, as in the JAX server
+without one) and the generate route's ``continuous`` snapshot.
+``/healthz`` turns 503 on a closed batcher, on an SLO fast burn and when
+the KV pool's uncommitted pages fall below ``--serve_hbm_headroom_pct``.
 """
 
 from __future__ import annotations
@@ -29,11 +37,13 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from distributed_tensorflow_tpu_torch.serving import reqtrace
 from distributed_tensorflow_tpu_torch.serving.batcher import (
     DynamicBatcher,
     RejectedError,
 )
 from distributed_tensorflow_tpu_torch.serving.engine import InferenceEngine
+from distributed_tensorflow_tpu_torch.utils import telemetry
 
 
 def _result_with_id(fut, wait_s: float):
@@ -45,6 +55,21 @@ def _result_with_id(fut, wait_s: float):
         raise
 
 
+def _future_meta(fut) -> dict:
+    """The wire's request metadata from a completed Future: the echoed
+    request_id always; the disposition, phases, total, bucket and served
+    step when the request plane is configured."""
+    meta = {"request_id": fut.request_id}
+    if fut.meta is not None:
+        meta["disposition"] = fut.meta["disposition"]
+        meta["phases_ms"] = fut.meta["phases_ms"]
+        meta["total_ms"] = fut.meta["total_ms"]
+        meta["bucket"] = fut.meta["bucket"]
+        if "served_step" in fut.meta:
+            meta["served_step"] = fut.meta["served_step"]
+    return meta
+
+
 class InProcessClient:
     """Typed request surface over the predict and/or generate batcher —
     the engine-side twin of the HTTP routes. Owns the generate route's
@@ -54,7 +79,7 @@ class InProcessClient:
     refused (400 on the wire) instead of holding the batch worker."""
 
     def __init__(self, predict_batcher: DynamicBatcher | None = None,
-                 generate_batcher: DynamicBatcher | None = None, *,
+                 generate_batcher=None, *,  # Dynamic- or ContinuousBatcher
                  default_max_new_tokens: int = 16,
                  max_new_tokens_cap: int | None = None,
                  default_temperature: float = 0.0):
@@ -71,14 +96,15 @@ class InProcessClient:
 
     def predict_ex(self, x, timeout_ms: float | None = None,
                    wait_s: float = 30.0, request_id: str | None = None):
-        """``(outputs, meta)``; meta carries the echoed request_id."""
+        """``(outputs, meta)``: meta carries the echoed request_id and,
+        with the request plane configured, the disposition and phases."""
         if self.predict_batcher is None:
             raise ValueError("this server is not configured for predict")
         fut = self.predict_batcher.submit(np.asarray(x),
                                           timeout_ms=timeout_ms,
                                           request_id=request_id)
         out = _result_with_id(fut, wait_s)
-        return out, {"request_id": fut.request_id}
+        return out, _future_meta(fut)
 
     def generate(self, prompt, max_new_tokens: int | None = None,
                  temperature: float | None = None, seed: int | None = None,
@@ -109,7 +135,7 @@ class InProcessClient:
             request_id=request_id, max_new_tokens=n, temperature=t,
             seed=None if seed is None else int(seed))
         out = _result_with_id(fut, wait_s)
-        return out, {"request_id": fut.request_id}
+        return out, _future_meta(fut)
 
 
 def make_predict_runner(engine: InferenceEngine):
@@ -160,9 +186,12 @@ def predict_group_key(payload, opts):
 
 class ServingMetrics:
     """Cadenced scalar emission through MetricsLogger, installed as the
-    batcher's ``on_batch`` hook: every ``emit_every`` batches the queue
-    depth, throughput, rejections, reload counters and latency quantiles
-    land in the logger's JSONL sink."""
+    batcher's ``on_batch`` hook (the continuous batcher's
+    ``on_iteration``): every ``emit_every`` batches the queue depth,
+    throughput, rejections, reload counters, latency quantiles and, with
+    an SLO armed, its compliance and burn land in the logger's JSONL
+    sink. The span sink flushes at the same cadence (every 50 batches
+    when scalars are off)."""
 
     def __init__(self, logger, engine: InferenceEngine, *,
                  emit_every: int = 50, name: str = ""):
@@ -176,13 +205,17 @@ class ServingMetrics:
         self._lock = threading.Lock()
 
     def on_batch(self, batcher) -> None:
-        if self.emit_every <= 0:  # 0 = scalars off
-            return
         # cadence on our call count: the hook only runs on success
         with self._lock:
             self._calls += 1
-            if self._calls % self.emit_every:
-                return
+            calls = self._calls
+        # the span sink's flush must not depend on the scalars being on,
+        # or a long-running server's pending spans grow without bound
+        flush_every = self.emit_every if self.emit_every > 0 else 50
+        if calls % flush_every == 0:
+            telemetry.get_tracer().flush()
+        if self.emit_every <= 0 or calls % self.emit_every:  # 0 = off
+            return
         stats = batcher.stats.as_dict()
         with self._lock:
             dt = time.monotonic() - self._t0
@@ -202,6 +235,13 @@ class ServingMetrics:
         }
         if batcher.latency is not None:
             scalars.update(batcher.latency.summary(f"{p}latency_ms_"))
+        plane = reqtrace.get_plane()
+        if plane is not None and plane.slo is not None:
+            slo = plane.slo.report()
+            scalars[f"{p}slo_compliant_pct"] = slo["compliant_pct"]
+            scalars[f"{p}slo_budget_remaining_pct"] = \
+                slo["budget_remaining_pct"]
+            scalars[f"{p}slo_burn_rate_fast"] = slo["burn_rate_fast"]
         if self.logger is not None:
             self.logger.scalars(stats["batches"], scalars)
             self.logger.flush()
@@ -257,6 +297,14 @@ class _Handler(BaseHTTPRequestHandler):
                     request_id=rid)
                 self._send(200, {"tokens": np.asarray(toks).tolist(),
                                  **meta})
+            elif self.path == "/admin/reload":
+                # pick up a newer checkpoint now instead of at the
+                # watcher's tick; safe under traffic (the reload is
+                # serialized and swaps between microbatches)
+                report = srv.engine.reload_if_newer()
+                self._send(200, {"reloaded": report is not None,
+                                 "report": report,
+                                 "params_step": srv.engine.step})
             else:
                 self._send(404, {"error": f"no route {self.path}"})
         except RejectedError as e:
@@ -276,12 +324,16 @@ class _Handler(BaseHTTPRequestHandler):
 
 class InferenceServer:
     """ThreadingHTTPServer wrapper owning the route -> batcher wiring,
-    with the replica-health accounting a router polls."""
+    with the replica-health accounting a router polls.
+    ``hbm_headroom_floor_pct`` (``--serve_hbm_headroom_pct``) is the
+    drain floor on the KV pool's uncommitted pages."""
 
     def __init__(self, engine: InferenceEngine, client: InProcessClient,
-                 host: str = "127.0.0.1", port: int = 8000):
+                 host: str = "127.0.0.1", port: int = 8000,
+                 hbm_headroom_floor_pct: float = 0.0):
         self.engine = engine
         self.client = client
+        self.hbm_headroom_floor_pct = float(hbm_headroom_floor_pct or 0.0)
         self.httpd = ThreadingHTTPServer((host, port), _Handler)
         self.httpd.serving = self  # type: ignore[attr-defined]
         self._thread: threading.Thread | None = None
@@ -304,17 +356,42 @@ class InferenceServer:
         if self.client.generate_batcher is not None:
             yield "generate", self.client.generate_batcher
 
+    def _kv_block(self) -> dict | None:
+        """The continuous scheduler's page-pool occupancy; None under the
+        whole-batch scheduler (a dense cache, nothing page-allocated)."""
+        for _name, b in self._batchers():
+            sched = getattr(b, "scheduler", None)
+            if sched is not None:
+                return sched.allocator.occupancy()
+        return None
+
     def healthz(self) -> dict:
         """Liveness (every batcher still has a worker), the served params
-        version and the queue depth. ``ok: false`` maps to HTTP 503."""
+        version, the queue depth, the SLO fast burn and, with
+        ``--serve_hbm_headroom_pct``, the KV page floor (a server whose
+        uncommitted pages fall below it is about to refuse admissions, so
+        a router drains it first). ``ok: false`` maps to HTTP 503. The
+        port has no device-memory meter yet: ``hbm_headroom_pct`` reads
+        None and never trips."""
         closed = [name for name, b in self._batchers() if b.closed]
         depth = sum(b.stats.as_dict()["queue_depth"]
                     for _, b in self._batchers())
-        return {"ok": not closed,
+        plane = reqtrace.get_plane()
+        slo_burn = bool(plane is not None and plane.fast_burn_breach())
+        kv = self._kv_block()
+        kv_low = bool(kv is not None and self.hbm_headroom_floor_pct > 0
+                      and kv["free_pct"] < self.hbm_headroom_floor_pct)
+        return {"ok": not closed and not slo_burn and not kv_low,
                 "step": self.engine.step,
                 "params_step": self.engine.step,
                 "closed_batchers": closed,
                 "queue_depth": depth,
+                "hbm_headroom_pct": None,
+                "hbm_low_headroom": False,
+                "kv_page_free_pct": (kv["free_pct"] if kv is not None
+                                     else None),
+                "kv_low_pages": kv_low,
+                "slo_fast_burn": slo_burn,
                 "device": str(self.engine.device),
                 "uptime_s": round(time.monotonic() - self._t0, 3)}
 
@@ -357,7 +434,10 @@ class InferenceServer:
 
     def metrics(self) -> dict:
         """Counters, latency quantiles, backpressure state and the
-        params-version/reload story, per batcher."""
+        params-version/reload story, per batcher; the request plane's
+        ``tail`` and ``slo`` blocks (None when it is unconfigured);
+        ``hbm`` ({"kv_pages": ...} under the continuous scheduler, else
+        None); and the generate route's ``continuous`` snapshot."""
         reloads = self.engine.counters_snapshot()
         out = {
             "params_step": self.engine.step,
@@ -369,6 +449,11 @@ class InferenceServer:
             "uptime_s": round(time.monotonic() - self._t0, 3),
             "goodput_uptime_pct": self._goodput_uptime_pct(),
         }
+        kv = self._kv_block()
+        out["hbm"] = {"kv_pages": kv} if kv is not None else None
+        plane = reqtrace.get_plane()
+        out["tail"] = plane.tail_report() if plane is not None else None
+        out["slo"] = plane.slo_report() if plane is not None else None
         for name, b in self._batchers():
             stats = b.stats.as_dict()
             entry = dict(stats)
@@ -382,6 +467,10 @@ class InferenceServer:
                 "rejected_full": stats["rejected_full"],
             }
             entry["health"] = self._health_block(name, stats, b)
+            sched = getattr(b, "scheduler", None)
+            if sched is not None:
+                # the continuous scheduler's iteration-level counters
+                entry["continuous"] = sched.snapshot()
             out[name] = entry
         return out
 

@@ -649,8 +649,18 @@ class _HostCoordinator:
         self._stop, self._cadence = bool(votes[0]), bool(votes[1])
 
 
+# Idle host time at each end of a profiled window on a card. The tracer
+# keeps only the device records whose timestamps, moved onto the host's
+# clock, fall inside the window, and on an H100 that move can be
+# milliseconds off: the first kernels of a window went missing
+# (profile_window_probe.py). The work between the margins is one host
+# event, PROFILED_STEPS, and the busy share is taken over it.
+_PROFILE_MARGIN_S = 0.1
+PROFILED_STEPS = "profiled steps"
+
+
 def _start_profiler(device: torch.device):
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -658,20 +668,28 @@ def _start_profiler(device: torch.device):
     _sync(device)
     prof = profile(activities=activities)
     prof.start()
+    if device.type == "cuda":
+        time.sleep(_PROFILE_MARGIN_S)
+    prof.profiled_steps = record_function(PROFILED_STEPS)
+    prof.profiled_steps.__enter__()
     return prof
 
 
 def _stop_profiler(prof, device: torch.device, profile_dir: str):
     """End the window with the device drained, write the Chrome trace
-    into ``profile_dir`` and return the device's busy share over it."""
+    into ``profile_dir`` and return the device's busy share over the
+    profiled steps."""
     import os
 
     _sync(device)
+    prof.profiled_steps.__exit__(None, None, None)
+    if device.type == "cuda":
+        time.sleep(_PROFILE_MARGIN_S)
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     events = prof.events()
-    share = busy_share(events)
+    share = busy_share(events, window=PROFILED_STEPS)
     print(f"profile: {len(events)} events in "
           f"{profile_dir}/trace.json; device busy share "
           f"{'not measured' if share is None else f'{share:.4f}'}")

@@ -49,26 +49,33 @@ def collective_sync_cadence(backend: str | None, world_size: int) -> int:
     return 1 if backend == "gloo" and world_size > 1 else 0
 
 
-def busy_share(events) -> float | None:
+def busy_share(events, window: str | None = None) -> float | None:
     """The share of a profiled window in which the device ran at least
-    one kernel or copy: the union of the device events' intervals over
-    the window from the first host event's start to the last event's end.
-    ``events`` are ``torch.profiler.profile().events()``. None when the
-    trace holds no device time (the profiler saw no device)."""
+    one kernel or copy: the union of the device events' intervals, cut
+    to the window. The window is the host event named ``window`` where
+    one is given (the traced work, without idle margins around it; the
+    device's copy of that annotation is not device time), else from the
+    first event's start to the last event's end. ``events`` are
+    ``torch.profiler.profile().events()``. None when the trace holds no
+    device time (the profiler saw no device)."""
     from torch.autograd import DeviceType
 
-    device, spans = [], []
+    device, spans, marked = [], [], None
     for e in events:
         iv = (e.time_range.start, e.time_range.end)
         spans.append(iv)
-        if e.device_type == DeviceType.CUDA and iv[1] > iv[0]:
+        if window is not None and e.name == window:
+            if e.device_type != DeviceType.CUDA:
+                marked = iv
+        elif e.device_type == DeviceType.CUDA and iv[1] > iv[0]:
             device.append(iv)
     if not device:
         return None
-    busy, end = 0.0, float("-inf")
+    lo, hi = marked or (min(s for s, _ in spans), max(s for _, s in spans))
+    busy, end = 0.0, lo
     for start, stop in sorted(device):
-        if stop > end:
-            busy += stop - max(start, end)
+        start, stop = max(start, end), min(stop, hi)
+        if stop > start:
+            busy += stop - start
             end = stop
-    window = max(s for _, s in spans) - min(s for s, _ in spans)
-    return busy / window if window > 0 else None
+    return busy / (hi - lo) if hi > lo else None

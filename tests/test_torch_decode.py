@@ -204,9 +204,46 @@ def test_http_generate_matches_jax(jax_lm, jax_fns, fresh_flags):
         metrics.logger.close()
 
 
-def test_continuous_scheduler_is_not_yet_ported(jax_lm, fresh_flags):
-    fresh_flags._parse(["--device", "cpu", "--logdir", jax_lm[0], "--model",
-                        "lm", "--dataset", "lm", "--serve_scheduler",
-                        "continuous"])
-    with pytest.raises(NotImplementedError, match="continuous"):
+def test_continuous_scheduler_is_not_yet_ported(jax_lm, jax_fns,
+                                                fresh_flags, tmp_path):
+    """The name is the earlier slice's, when the scheduler raised; it is
+    ported now: ``--serve_scheduler continuous`` builds the slot
+    scheduler, which answers with JAX's greedy tokens, and an MoE LM is
+    refused as the JAX decode refuses it."""
+    from distributed_tensorflow_tpu_torch.serving import ContinuousBatcher
+
+    logdir, jm, params = jax_lm
+    argv = ["--device", "cpu", "--logdir", logdir, "--model", "lm",
+            "--dataset", "lm", "--seq_len", str(S), "--vocab_size", str(V),
+            "--d_model", str(D), "--num_heads", str(H), "--num_blocks",
+            str(NB), "--serve_reload_secs", "0", "--serve_scheduler",
+            "continuous", "--serve_slots", "2", "--serve_kv_page", "8",
+            "--serve_max_new_tokens", str(N_NEW)]
+    fresh_flags._parse(argv)
+    engine, client, _, metrics = build_serving_stack(fresh_flags)
+    try:
+        assert isinstance(client.generate_batcher, ContinuousBatcher)
+        prompt = _prompts(1, 8, seed=21)
+        want = jdec.generate(jm, params, prompt, N_NEW,
+                             prefill_fn=jax_fns[0], step_fn=jax_fns[1])
+        got = client.generate(prompt[0])
+        np.testing.assert_array_equal(got, np.asarray(want["tokens"])[0])
+    finally:
+        client.predict_batcher.close()
+        client.generate_batcher.close()
+        metrics.logger.close()
+    from distributed_tensorflow_tpu_torch.checkpoint import save_checkpoint
+    from distributed_tensorflow_tpu_torch.utils.pytree import (
+        params_to_numpy,
+    )
+
+    moe = TransformerLM(vocab_size=V, seq_len=S, d_model=D, num_heads=H,
+                        num_blocks=NB, moe_experts=2).init(
+                            torch.Generator().manual_seed(0))
+    save_checkpoint(str(tmp_path), {"params": params_to_numpy(moe),
+                                    "step": np.int32(1)}, 1)
+    fresh_flags._reset()
+    fresh_flags._parse(argv + ["--moe_experts", "2", "--logdir",
+                               str(tmp_path)])
+    with pytest.raises(ValueError, match="MoE"):
         build_serving_stack(fresh_flags)

@@ -1,6 +1,6 @@
 """Import hygiene of the port: every module of
-``distributed_tensorflow_tpu_torch``, ``chip_smoke.py`` and
-``port_kernel_study.py`` import in a
+``distributed_tensorflow_tpu_torch``, ``chip_smoke.py``,
+``port_kernel_study.py`` and ``profile_window_probe.py`` import in a
 fresh interpreter without pulling in ``jax`` or the JAX package, and the
 smoke script refuses to run without a card."""
 
@@ -45,10 +45,13 @@ def test_port_and_chip_smoke_import_no_jax():
                 "models.resnet", "models.mlp", "ops.augment",
                 "parallel.ps_emulation", "checkpoint.inspect",
                 "parallel.zero", "data.lm", "ops.attention",
-                "models.transformer", "serving.decode", "ops.moe"):
+                "models.transformer", "serving.decode", "ops.moe",
+                "utils.telemetry", "utils.faults", "serving.reqtrace",
+                "serving.kvpage", "serving.continuous"):
         assert f"distributed_tensorflow_tpu_torch.{new}" in names
     proc = subprocess.run([sys.executable, "-c", _PROBE, *names,
-                           "chip_smoke", "port_kernel_study"], cwd=REPO,
+                           "chip_smoke", "port_kernel_study",
+                           "profile_window_probe"], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "BAD []" in proc.stdout

@@ -32,6 +32,7 @@ from distributed_tensorflow_tpu_torch.checkpoint import checkpoint as tckpt
 from distributed_tensorflow_tpu_torch.data import synthetic_digits
 from distributed_tensorflow_tpu_torch.utils.profiling import (
     Throughput,
+    busy_share,
     collective_sync_cadence,
 )
 
@@ -556,3 +557,53 @@ def test_throughput_per_chip_and_the_sync_cadence(monkeypatch):
     assert collective_sync_cadence("gloo", 2) == 1
     assert collective_sync_cadence("gloo", 1) == 0
     assert collective_sync_cadence("nccl", 4) == 0
+
+
+def _event(name, device_type, start, end):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(name=name, device_type=device_type,
+                           time_range=SimpleNamespace(start=start, end=end))
+
+
+def test_busy_share_over_the_marked_window():
+    """Device time cut to the marked host event, whose device copy is
+    not device time; without a mark, the whole trace's span."""
+    from torch.autograd import DeviceType
+
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    kernels = [_event("k", cuda, a, b) for a, b in
+               ((50, 150), (200, 300), (250, 350), (550, 700), (800, 950))]
+    host = [_event("aten::mm", cpu, 0, 1000)]
+    marked = [_event("steps", cpu, 100, 600), _event("steps", cuda, 150, 650)]
+    # [100, 150] + [200, 350] + [550, 600] of [100, 600]
+    assert busy_share(host + marked + kernels, window="steps") == 0.5
+    # 100 + 150 + 150 + 150 of [0, 1000]
+    assert busy_share(host + kernels) == 0.55
+    assert busy_share(host + marked[:1] + kernels, window="steps") == \
+        busy_share(host + marked + kernels, window="steps")
+    assert busy_share(host + marked[:1], window="steps") is None
+
+
+def test_profiled_window_marks_the_steps_on_the_cpu(tmp_path):
+    """The loop's profiled window: one host event around the traced work,
+    in the events and in the Chrome trace; no device, no busy share."""
+    from distributed_tensorflow_tpu_torch.training import loop
+
+    device = torch.device("cpu")
+    prof = loop._start_profiler(device)
+    a = torch.ones(32, 32)
+    for _ in range(3):
+        a = a @ a / 32
+    assert loop._stop_profiler(prof, device, str(tmp_path)) is None
+    events = prof.events()
+    steps = [e for e in events if e.name == loop.PROFILED_STEPS]
+    assert len(steps) == 1
+    mms = [e for e in events if e.name == "aten::mm"]
+    assert len(mms) == 3
+    assert all(steps[0].time_range.start <= e.time_range.start
+               and e.time_range.end <= steps[0].time_range.end for e in mms)
+    with open(tmp_path / "trace.json") as f:
+        trace = json.load(f)["traceEvents"]
+    assert [e["cat"] for e in trace if e.get("name") == loop.PROFILED_STEPS] \
+        == ["user_annotation"]
