@@ -41,7 +41,7 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    around a CUDA graph of many launches over rotating buffers larger than
    L2, beside the least time the card could take;
 7. the ``kernels`` JSON line, the card line, and ``{"ok": true, ...}`` last,
-   after phase 14;
+   after phase 15;
 8. device-resident sync DP: a one-rank NCCL group on
    ``tcp://127.0.0.1:<free port>``, then ``train(FLAGS, mode="sync")`` with
    ``--device_data --pallas`` in f32 and in bf16 (each step one CUDA graph
@@ -183,7 +183,25 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    p50/p99, the tail block's queue_wait p99, KV pages high water; then
    the slot step's time an iteration, its graph replay's device time and
    the card's busy share over 20 profiled iterations. No bar is set on
-   them; (e) ``fused_dense_relu`` must not launch over (b)-(d).
+   them; (e) ``fused_dense_relu`` must not launch over (b)-(d);
+15. the model axis (``--model_axis 2``) on one card: two ranks on cuda:0,
+   each a spawned process that joins a gloo group as a library caller
+   and trains through ``train(FLAGS, mode="sync")`` (NCCL refuses two
+   ranks of one communicator on one device; the phase's first line
+   prints what it says): (a) deep_cnn ``--pallas`` at phase 5's recipe
+   (adam 1e-3, batch 128, dropout on) in f32 and bf16, 20 steps against
+   20 one-rank steps from one init and one batch stream within phase
+   5's bars, the kernel launched once per forward pass on each rank on
+   its own contiguous (M, 3136) x (3136, 512) column shard, every time
+   as "tma"; (b) the dense LM at lm_4k (flash attention, batch 8) for 5
+   steps against one rank, f32 within 1e-4 and bf16 within 2e-2 of
+   max(1, loss), no kernel launch; (c) the f32 grid's sharded set at
+   step 20 through ``checkpoint.inspect --verify``, then it and the
+   one-rank run's monolithic file each resumed for 5 steps by the grid
+   and by one rank, the two within phase 5's f32 bar; (d) ms/step and
+   busy share of (a) and (b) on each rank, printed as gloo-staged, not a
+   TP time; (e) after phase 6, the kernel's times at the column shards'
+   shapes (M 128 and 1000, N 512 and 256), which phases 3 and 6 include.
 
 Any failed phase raises, so the script exits non-zero. f32 runs in full
 f32: TF32 is turned off for cuDNN and cuBLAS.
@@ -196,6 +214,7 @@ import copy
 import io
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
@@ -286,8 +305,12 @@ L2_BYTES = 50 * 2 ** 20
 # (M, K, N): serving buckets 1 and 8, the training batch 128, a large
 # batch, the test-eval batch 1000, and a ragged shape that TMA cannot
 # describe (variant "simt")
+# phase 15's column shards of wd1: N = 1024/2 and 1024/4 at the training
+# and test-eval batches
+TP_SHAPES = [(128, 3136, 512), (1000, 3136, 512), (128, 3136, 256),
+             (1000, 3136, 256)]
 SHAPES = [(1, 3136, 1024), (8, 3136, 1024), (128, 3136, 1024),
-          (256, 3136, 1024), (1000, 3136, 1024), (130, 257, 70)]
+          (256, 3136, 1024), (1000, 3136, 1024), (130, 257, 70), *TP_SHAPES]
 SERVE_SHAPE = (8, 3136, 1024)  # the largest predict bucket (--serve_max_batch 8)
 TRAIN_SHAPE = (128, 3136, 1024)  # --batch_size 128
 BITWISE_M = (8, 256, 1000)  # shapes whose repeat call must be bitwise equal
@@ -452,6 +475,20 @@ CONT_WHOLE_BATCH, CONT_KV_PAGES = 4, 1024
 CONT_BENCH_REQUESTS, CONT_BENCH_CLIENTS = 96, 16
 CONT_BENCH_SHORT, CONT_BENCH_LONG = 32, 256
 CONT_PROFILE_ITERS = 20
+
+# phase 15: the model axis on one card, two ranks on cuda:0 over gloo. (a)
+# deep_cnn --pallas at phase 5's recipe, TP_STEPS steps against one rank
+# (phase 5's bars, TRAJ_TOL); (b) the LM at lm_4k with the flash
+# attention, TP_LM_STEPS steps, f32 within 1e-4 and bf16 within 2e-2 of
+# max(1, loss); (c) the f32 grid's sharded set and the one-rank file
+# resumed for TP_RESUME steps by the grid and by one rank; (d) timed
+# runs without the profiler for the rate, and runs with TP_PROFILE
+# (TP_LM_PROFILE) profiled steps for the busy share
+TP_WAYS = 2
+TP_STEPS, TP_RESUME, TP_LM_STEPS, TP_TIME_STEPS = 20, 5, 5, 40
+TP_PROFILE, TP_LM_PROFILE = 10, 2
+TP_LM_TOL = {"f32": 1e-4, "bf16": 2e-2}
+TP_JOIN_S, TP_NCCL_S = 600, 120  # a rank not done by then is stuck
 
 N_REQUESTS, N_THREADS = 64, 8
 KERNEL_SRC = "distributed_tensorflow_tpu_torch/ops/csrc/fused_dense_relu.cu"
@@ -3213,6 +3250,317 @@ def phase_continuous(card: str, work: str) -> dict:
             "launches": launches}
 
 
+# ----------------------------- phase 15: the model axis on one card
+
+def tp_args(rank: int, port: int) -> tuple[str, ...]:
+    """A rank of the 1 x TP_WAYS grid on this card."""
+    hosts = ",".join([f"127.0.0.1:{port}"] * TP_WAYS)
+    return ("--mode", "sync", "--model_axis", str(TP_WAYS), "--worker_hosts",
+            hosts, "--task_index", str(rank))
+
+
+def _nccl_rank(rank: int, port: int, work: str) -> None:
+    """One of two ranks of an NCCL group on cuda:0; writes what the
+    group's first collective did to ``nccl{rank}.txt``."""
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=TP_WAYS)
+        t = torch.ones(4, device="cuda:0")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        said = f"all_reduce returned {t.tolist()}"
+    except Exception as e:  # noqa: BLE001 — what NCCL says is the result
+        said = f"{type(e).__name__}: {e}"
+    with open(os.path.join(work, f"nccl{rank}.txt"), "w") as f:
+        f.write(said)
+
+
+def spawn_ranks(target, *args, timeout: float) -> None:
+    """``target(rank, *args)`` in TP_WAYS spawned processes on this card;
+    every one must exit 0 within ``timeout`` seconds (a straggler is
+    killed, and the phase fails)."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(rank, *args))
+             for rank in range(TP_WAYS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * TP_WAYS:
+        raise AssertionError(f"{target.__name__} ranks exited {codes}")
+
+
+def nccl_refusal(work: str) -> str:
+    """What NCCL says when two ranks of one communicator share the card
+    (the phase's first line: why its group is gloo)."""
+    outs = [os.path.join(work, f"nccl{r}.txt") for r in range(TP_WAYS)]
+    try:
+        spawn_ranks(_nccl_rank, free_port(), work, timeout=TP_NCCL_S)
+    except AssertionError as e:
+        return f"the NCCL ranks did not finish ({e})"
+    said = [open(p).read().strip() if os.path.exists(p) else "" for p in outs]
+    # NCCL's own reason is the last line of its error
+    return " | ".join(s.splitlines()[-1][:300] if s else "nothing"
+                      for s in said)
+
+
+def tp_cnn_args(steps: int, display: int) -> tuple[str, ...]:
+    """Phase 5's recipe (adam 1e-3, batch 128, dropout on) with
+    ``--pallas``."""
+    return ("--training_iter", str(steps), "--display_step", str(display),
+            "--test_eval", "false")
+
+
+def tp_lm_args(steps: int, display: int) -> tuple[str, ...]:
+    """The dense LM at lm_4k with the flash attention, batch 8."""
+    return (*lm_args(*LM_4K), "--attn_block", str(LM_ATTN_BLOCK),
+            "--learning_rate", "0.001", "--keep_prob", "1.0",
+            "--batch_size", str(LM_4K_BATCH), "--training_iter", str(steps),
+            "--display_step", str(display), "--test_eval", "false")
+
+
+def tp_rank(rank: int, port: int, work: str, data_dir: str) -> None:
+    """One rank of phase 15, a spawned process: joins the gloo group as a
+    library caller, then trains through ``train(FLAGS, mode="sync")``
+    with ``--model_axis 2``: (a) deep_cnn ``--pallas`` in f32 and bf16,
+    the kernel's calls recorded by shape; (b) the LM at lm_4k; (c) the f32
+    grid's sharded set and phase 15's one-rank monolithic file, each
+    resumed by the grid; (d) timed and profiled runs. Writes what it saw
+    to ``tp-rank{rank}.json``."""
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=TP_WAYS)
+    grid = tp_args(rank, port)
+    calls = []
+    kernel = cnn.fused_dense_relu
+
+    def recorded(x, w, b):
+        calls.append([*x.shape, *w.shape, w.is_contiguous(),
+                      w.data_ptr() % 16 == 0, w.data_ptr() != 0])
+        return kernel(x, w, b)
+
+    cnn.fused_dense_relu = recorded
+    out = {}
+
+    def logdir(name):
+        return os.path.join(work, name)
+
+    for tag in DTYPES:
+        del calls[:]
+        fused_dense.LAUNCHES = 0  # the main path's run starts here
+        fused_dense.LAUNCHES_BY_VARIANT.update(tma=0, simt=0)
+        run = TrainRun(logdir(f"tp-grid-{tag}"), data_dir, tag, True,
+                       *tp_cnn_args(TP_STEPS, 1), *grid, mode="sync")
+        out[f"cnn-{tag}"] = {
+            "launches": fused_dense.LAUNCHES,  # ... and ends here
+            "by_variant": dict(fused_dense.LAUNCHES_BY_VARIANT),
+            "calls": sorted({json.dumps(c) for c in calls}),
+            "n_calls": len(calls),
+            "losses": run.records("mini_batch_loss") if rank == 0 else {},
+            "final_step": run.result.final_step}
+    saved = datasets.LM_TRAIN, datasets.LM_TEST
+    datasets.LM_TRAIN, datasets.LM_TEST = LM_SPLIT
+    try:
+        for tag in DTYPES:
+            fused_dense.LAUNCHES = 0
+            run = TrainRun(logdir(f"tp-lm-{tag}"), data_dir, tag, False,
+                           *tp_lm_args(TP_LM_STEPS, 1), *grid, mode="sync")
+            out[f"lm-{tag}"] = {
+                "launches": fused_dense.LAUNCHES,
+                "losses": run.records("mini_batch_loss") if rank == 0
+                else {}, "final_step": run.result.final_step}
+        for tag in DTYPES:
+            out[f"lm-time-{tag}"] = tp_timed(
+                logdir, data_dir, tag, False, grid, rank, "lm",
+                tp_lm_args(TP_LM_STEPS, 1000),
+                tp_lm_args(TP_LM_PROFILE + 1, 1000), TP_LM_PROFILE)
+    finally:
+        datasets.LM_TRAIN, datasets.LM_TEST = saved
+    # (c) the grid resumes its own sharded set and the one-rank file
+    for src in ("tp-grid-f32", "tp-one-f32"):
+        dst = logdir(f"{src}-by-grid")
+        if rank == 0:
+            shutil.copytree(logdir(src), dst)
+        dist.barrier()
+        run = TrainRun(dst, data_dir, "f32", True,
+                       *tp_cnn_args(TP_STEPS + TP_RESUME, 1), *grid,
+                       mode="sync")
+        out[f"resume-{src}"] = {
+            "losses": run.records("mini_batch_loss") if rank == 0 else {},
+            "restored": run.records("recovery_restore_step") if rank == 0
+            else {}, "final_step": run.result.final_step}
+    for tag in DTYPES:
+        out[f"time-{tag}"] = tp_timed(
+            logdir, data_dir, tag, True, grid, rank, "cnn",
+            tp_cnn_args(TP_TIME_STEPS, 10 * TP_TIME_STEPS),
+            tp_cnn_args(2 * TP_PROFILE, 10 * TP_TIME_STEPS), TP_PROFILE)
+    cnn.fused_dense_relu = kernel
+    with open(os.path.join(work, f"tp-rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def tp_timed(logdir, data_dir: str, tag: str, pallas: bool, grid, rank: int,
+             name: str, timed_args, profiled_args, profile_steps: int):
+    """A rank's rate over a run's steps after the first, with no
+    profiler, and the busy share of a second run's profiled steps (the
+    profiler's own cost stays out of the rate; its run's rate beside
+    it)."""
+    timed = TrainRun(logdir(f"tp-{name}-time-{tag}-{rank}"), data_dir, tag,
+                     pallas, *timed_args, *grid, mode="sync")
+    prof = TrainRun(logdir(f"tp-{name}-prof-{tag}-{rank}"), data_dir, tag,
+                    pallas, *profiled_args, *grid, "--profile_dir",
+                    logdir(f"tp-{name}-trace-{tag}-{rank}"),
+                    "--profile_steps", str(profile_steps), mode="sync")
+    return {"images_per_sec": timed.result.images_per_sec,
+            "profiled_images_per_sec": prof.result.images_per_sec,
+            "busy": prof.result.device_busy_share}
+
+
+def tp_close(got: dict, want: dict, tol: float, what: str) -> float:
+    """max |got - want| / max(1, |want|) over the steps of ``want``, which
+    must be ``got``'s steps; raises past ``tol``."""
+    got = {int(k): v for k, v in got.items()}
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: steps {sorted(got)} against "
+                             f"{sorted(want)}")
+    worst = max(rel_diffs(got, want))
+    say("model axis", f"{what}: max |diff|/max(1,|loss|) {worst:.3e} "
+                      f"(tolerance {tol}); losses {[round(want[s], 5) for s in sorted(want)]}")
+    if not worst <= tol:
+        raise AssertionError(f"{what}: the model axis leaves the one-rank "
+                             f"run")
+    return worst
+
+
+def phase_model_axis(card: str, work: str, data_dir: str) -> dict:
+    """Phase 15: two ranks on this card (gloo: see the first line),
+    against one-rank runs in this process; parity only, the times are
+    gloo-staged."""
+    t0 = time.perf_counter()
+    say("model axis", f"two ranks share cuda:0, so the grid's group is "
+                      f"gloo; NCCL with two ranks on this card says: "
+                      f"{nccl_refusal(work)}")
+    one = {}
+    for tag in DTYPES:
+        run = TrainRun(os.path.join(work, f"tp-one-{tag}"), data_dir, tag,
+                       True, *tp_cnn_args(TP_STEPS, 1))
+        one[f"cnn-{tag}"] = run.records("mini_batch_loss")
+    saved = datasets.LM_TRAIN, datasets.LM_TEST
+    datasets.LM_TRAIN, datasets.LM_TEST = LM_SPLIT
+    try:
+        for tag in DTYPES:
+            run = TrainRun(os.path.join(work, f"tp-one-lm-{tag}"), data_dir,
+                           tag, False, *tp_lm_args(TP_LM_STEPS, 1))
+            one[f"lm-{tag}"] = run.records("mini_batch_loss")
+    finally:
+        datasets.LM_TRAIN, datasets.LM_TEST = saved
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    spawn_ranks(tp_rank, free_port(), work, data_dir, timeout=TP_JOIN_S)
+    ranks = [json.load(open(os.path.join(work, f"tp-rank{r}.json")))
+             for r in range(TP_WAYS)]
+    out = {"launches": {}}
+    # (a) deep_cnn --pallas: losses, launches, the kernel on the shard
+    forwards = 2 * TP_STEPS  # a train step and a display eval a step
+    for tag in DTYPES:
+        tp_close(ranks[0][f"cnn-{tag}"]["losses"], one[f"cnn-{tag}"],
+                 TRAJ_TOL[tag], f"(a) deep_cnn --pallas {tag}, {TP_STEPS} "
+                 f"steps, 1x{TP_WAYS} grid vs one rank, dropout on")
+        for r, got in enumerate(ranks):
+            g = got[f"cnn-{tag}"]
+            calls = [json.loads(c) for c in g["calls"]]
+            say("model axis", f"(a) {tag} rank {r}: kernel launches "
+                              f"{g['launches']} {g['by_variant']} for "
+                              f"{forwards} forward passes; calls (M, K, K, "
+                              f"N, contiguous, 16-byte aligned, own storage)"
+                              f" {calls}")
+            if g["launches"] != forwards or g["n_calls"] != forwards or \
+                    g["by_variant"] != {"tma": forwards, "simt": 0}:
+                raise AssertionError(f"{tag} rank {r}: the kernel must "
+                                     f"launch once per forward pass, as "
+                                     f"tma")
+            if any(c[3] != 1024 // TP_WAYS or not all(c[4:]) for c in calls):
+                raise AssertionError(f"{tag} rank {r}: the kernel ran off "
+                                     f"this rank's contiguous column shard")
+        out["launches"][tag] = sum(g[f"cnn-{tag}"]["launches"]
+                                   for g in ranks)
+    # (b) the LM at lm_4k
+    for tag in DTYPES:
+        tp_close(ranks[0][f"lm-{tag}"]["losses"], one[f"lm-{tag}"],
+                 TP_LM_TOL[tag], f"(b) LM lm_4k flash {tag}, "
+                 f"{TP_LM_STEPS} steps, 1x{TP_WAYS} grid vs one rank")
+        if any(g[f"lm-{tag}"]["launches"] for g in ranks):
+            raise AssertionError("the LM's model axis launched the kernel")
+    # (c) the sharded set: inspect reads it; resumes across the layouts
+    grid_dir = os.path.join(work, "tp-grid-f32")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ckpt_inspect.main(["--logdir", grid_dir, "--verify"])
+    shards = sorted(n for n in os.listdir(grid_dir) if ".shard" in n)
+    say("model axis", f"(c) the grid's set at step {TP_STEPS}: {shards}; "
+                      f"checkpoint.inspect --verify exit {rc}: "
+                      f"{buf.getvalue().strip().splitlines()[:2]}")
+    if rc != 0 or len(shards) != TP_WAYS:
+        raise AssertionError("the grid's sharded set does not verify")
+    stop = TP_STEPS + TP_RESUME
+    for src in ("tp-grid-f32", "tp-one-f32"):
+        dst = os.path.join(work, f"{src}-by-one")
+        shutil.copytree(os.path.join(work, src), dst)
+        run = TrainRun(dst, data_dir, "f32", True, *tp_cnn_args(stop, 1))
+        by_grid = ranks[0][f"resume-{src}"]
+        if by_grid["restored"].get(str(TP_STEPS)) != TP_STEPS or \
+                run.records("recovery_restore_step").get(TP_STEPS) != \
+                TP_STEPS:
+            raise AssertionError(f"{src}: a resume did not restore step "
+                                 f"{TP_STEPS}")
+        resumed = {s: v for s, v in run.records("mini_batch_loss").items()
+                   if s >= TP_STEPS}
+        tp_close({s: v for s, v in by_grid["losses"].items()
+                  if int(s) >= TP_STEPS}, resumed, TRAJ_TOL["f32"],
+                 f"(c) {src}'s checkpoint resumed by the grid vs by one "
+                 f"rank, steps {TP_STEPS}-{stop - 1}")
+    # (d) times, gloo-staged
+    for tag in DTYPES:
+        for r, got in enumerate(ranks):
+            for path, t, unit in (("deep_cnn --pallas", got[f"time-{tag}"],
+                                   128), ("LM lm_4k", got[f"lm-time-{tag}"],
+                                          LM_4K_BATCH)):
+                busy = t["busy"]
+                say("model axis", f"(d) {path} {tag} rank {r}: "
+                                  f"{unit * 1e3 / t['images_per_sec']:.4f} "
+                                  f"ms/step ("
+                                  f"{unit * 1e3 / t['profiled_images_per_sec']:.4f}"
+                                  f" in the profiled run), busy share "
+                                  f"{'not measured' if busy is None else f'{busy:.4f}'}"
+                                  f" — gloo-staged, not a TP time (two "
+                                  f"ranks share one card, collectives "
+                                  f"through the host) | {card}")
+    say("model axis", f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_model_axis_kernel(card: str, times: dict) -> None:
+    """(e): the kernel at the column shards' shapes, from phase 6."""
+    for tag in DTYPES:
+        for shape in TP_SHAPES:
+            row = times[(tag, shape)]
+            say("model axis", f"(e) {tag} {shape}: kernel "
+                              f"{row['ms'] * 1e3:.2f} us, plain "
+                              f"{row['plain_ms'] * 1e3:.2f} us, addmm+relu_ "
+                              f"{row['library_ms'] * 1e3:.2f} us, bound "
+                              f"{row['bound_ms'] * 1e3:.2f} us "
+                              f"({row['bound_by']}) | {card}")
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -3258,7 +3606,9 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
         cont = phase_continuous(card, work)
+        tp = phase_model_axis(card, work, data_dir)
     times = phase_times(card, served)
+    phase_model_axis_kernel(card, times)
     kernels = []
     for tag in DTYPES:
         t = times[(tag, SERVE_SHAPE)]
@@ -3269,7 +3619,8 @@ def main() -> int:
                    "zero3_overlap": zeroed[tag]["launches"],
                    "lm_train_and_serve": lm["launches"],
                    "lm_device_moe_zero": complete["launches"],
-                   "lm_continuous_serve": cont["launches"]}
+                   "lm_continuous_serve": cont["launches"],
+                   "model_axis_two_ranks": tp["launches"][tag]}
         kernels.append({
             "name": f"fused_dense_relu[{tag}]", "route": "cuda",
             "variant": "tma", "source": KERNEL_SRC, "replaces": TPU_KERNEL,

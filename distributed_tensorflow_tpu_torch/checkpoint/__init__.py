@@ -1,5 +1,5 @@
 """Checkpoint save/restore in the JAX package's formats (the monolithic
-file written and read, the sharded set read), and the inspect CLI
+file and the sharded set, each written and read), and the inspect CLI
 (``python -m distributed_tensorflow_tpu_torch.checkpoint.inspect``)."""
 
 from distributed_tensorflow_tpu_torch.checkpoint.checkpoint import (  # noqa: F401
@@ -17,4 +17,5 @@ from distributed_tensorflow_tpu_torch.checkpoint.checkpoint import (  # noqa: F4
     restore_params_with_fallback,
     restore_with_fallback,
     save_checkpoint,
+    save_checkpoint_sharded,
 )

@@ -13,10 +13,12 @@ package restores in the other. ``Checkpointer`` is the Supervisor's
 time-cadenced, chief-only writer; with ``background=True``
 (``--async_checkpoint``) its cadenced writes run on a writer thread.
 
-The sharded format (one file per process, ``ckpt-{step}.shardP-of-N``,
-written by the JAX package for cross-host-sharded state) is read here:
-every reader takes a complete set and reassembles the same flat dict a
-monolithic file loads to. This package does not write it.
+The sharded format (one file per process, ``ckpt-{step}.shardP-of-N``)
+holds state that no one process has whole: a tensor-parallel state
+(``parallel/tensor_parallel.py``) is written by every rank of the grid,
+each file the slices its rank owns, byte for byte the JAX package's
+format. Every reader takes a complete set and reassembles the same flat
+dict a monolithic file loads to.
 """
 
 from __future__ import annotations
@@ -31,11 +33,18 @@ import zipfile
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from distributed_tensorflow_tpu_torch.utils.events import crc32c
+from distributed_tensorflow_tpu_torch.utils.faults import fault_point
 from distributed_tensorflow_tpu_torch.utils.pytree import (
     _BF16_TAG,
+    _bf16_bits,
+    _leaves_with_path,
+    _to_numpy,
     flatten_pytree,
+    path_key,
+    shard_of,
     unflatten_pytree,
 )
 
@@ -51,6 +60,7 @@ _SHARD_RE = re.compile(
     rf"{_PREFIX}-(\d+)\.shard(\d+)-of-(\d+)(?:\.([0-9a-f]{{8}}))?\.npz")
 _SHARDMETA = "__shardmeta__"
 _SHARD_FORMAT_VERSION = 1
+_ATTEMPT_RE = re.compile(r"[0-9a-f]{8}")
 
 
 class CheckpointCorruptError(ValueError):
@@ -145,12 +155,105 @@ def _write_flat(directory: str, flat: dict[str, np.ndarray], step: int,
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"{_PREFIX}-{step}.npz")
     _atomic_npz(directory, final, {**flat, _MANIFEST: _manifest_entry(flat)})
+    fault_point("ckpt_write", path=final, step=step)
     _write_index(directory, step)
     _gc(directory, max_to_keep)
     return final
 
 
+def _process() -> tuple[int, int]:
+    """(this process's index, the process count): the rank and world
+    size of the joined group, (0, 1) without one."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _default_attempt_token() -> str:
+    """Attempt token when the caller supplied none — STRICTLY
+    collective-free. One process: a fresh random token. Several: the
+    nonce-less name — per-process random tokens would never assemble
+    into a complete set, and agreeing on one here would need a
+    collective. The training loop always passes an agreed token (the
+    coordinator's vote / the exit agreement carries one)."""
+    import secrets
+
+    return secrets.token_hex(4) if _process()[1] == 1 else ""
+
+
+def _index_spec(index, shape) -> list:
+    """[[start, stop], ...] of a leaf this process holds whole or a
+    shard's index (JSON-safe)."""
+    if index is None:
+        return [[0, int(d)] for d in shape]
+    return [[int(a), int(b)] for a, b in index]
+
+
+def save_checkpoint_sharded(directory: str, state, step: int,
+                            max_to_keep: int = 5,
+                            attempt: str | None = None) -> str:
+    """This process's shard of a sharded checkpoint — NO collective.
+
+    Every rank calls this at the same agreed step and writes ONE file,
+    ``ckpt-{step}.shard{p}-of-{P}.{attempt}.npz``, holding the leaf slices
+    it uniquely owns: a tensor-parallel leaf's slice is stored by the
+    lowest rank among its holders (the grid's first row: replicas over
+    the data axis dedupe), a leaf every rank holds whole by rank 0, so
+    the set's bytes equal the model's. A JSON meta entry records global
+    shapes, ``[[start, stop], ...]`` placements, the bf16 tag and each
+    array's CRC-32C; ``load_flat_sharded`` reassembles the full flat dict
+    from a COMPLETE set, and a set mixing two save attempts at one
+    (step, P) never assembles (the attempt nonce must match). Rank 0
+    writes the index."""
+    p, n = _process()
+    if attempt is None:
+        attempt = _default_attempt_token()
+    elif attempt and not _ATTEMPT_RE.fullmatch(attempt):
+        # a name the scan regex can't parse would be silently
+        # unrestorable AND invisible to GC — refuse at save time
+        raise ValueError(f"attempt token {attempt!r} must be 8 lowercase "
+                         f"hex chars (or '' for the nonce-less name)")
+    os.makedirs(directory, exist_ok=True)
+    arrays: dict[str, np.ndarray] = {}
+    leaves_meta: dict[str, dict] = {}
+    for path, leaf in _leaves_with_path(state):
+        key = path_key(path)
+        sh = shard_of(leaf)
+        bf16 = getattr(leaf, "dtype", None) == torch.bfloat16
+        data = None
+        if (sh.owner if sh is not None else p == 0):
+            data = _bf16_bits(leaf) if bf16 else _to_numpy(leaf)
+        if data is None:
+            continue
+        gshape = sh.global_shape if sh is not None else data.shape
+        npz_key = f"{key}@0"
+        arrays[npz_key] = data
+        leaves_meta[key] = {
+            "global_shape": [int(d) for d in gshape],
+            "entries": [{"npz": npz_key,
+                         "index": _index_spec(sh and sh.index, gshape),
+                         "bf16": bool(bf16)}]}
+    meta = {"version": _SHARD_FORMAT_VERSION, "process": p, "n_shards": n,
+            "step": step, "attempt": attempt, "leaves": leaves_meta,
+            "crc32c": {k: crc32c(np.ascontiguousarray(v))
+                       for k, v in arrays.items()}}
+    arrays[_SHARDMETA] = np.frombuffer(
+        json.dumps(meta).encode(), dtype=np.uint8)
+    suffix = f".{attempt}" if attempt else ""
+    final = os.path.join(directory,
+                         f"{_PREFIX}-{step}.shard{p}-of-{n}{suffix}.npz")
+    _atomic_npz(directory, final, arrays)
+    fault_point("ckpt_write", path=final, step=step)
+    if p == 0:
+        _write_index(directory, step)
+    _gc(directory, max_to_keep)
+    return final
+
+
 def _write_index(directory: str, step: int) -> None:
+    fault_point("ckpt_index", step=step)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
     with os.fdopen(fd, "w") as f:
         json.dump({"latest_step": step, "time": time.time()}, f)
@@ -233,6 +336,7 @@ def load_flat_sharded(directory: str, step: int) -> dict[str, np.ndarray]:
             f"{directory!r}")
     parts: dict[str, dict] = {}
     for path in paths:
+        fault_point("restore", path=path, step=step)
         with np.load(path) as z:
             meta = _read_shard_meta(z, path)
             for k, want in (meta.get("crc32c") or {}).items():
@@ -290,6 +394,7 @@ def _gc(directory: str, max_to_keep: int) -> None:
     older than the oldest kept step (none while no step is restorable:
     an orphan then may be a peer's first save in progress). Quarantined
     ``*.corrupt`` files match no scan and are kept."""
+    fault_point("ckpt_gc")
     complete, all_shards = _scan_shards(directory)
     mono = set(_mono_steps(directory))
     restorable = sorted(mono | set(complete))
@@ -367,6 +472,8 @@ def load_flat(path: str) -> dict[str, np.ndarray]:
     if m:
         return load_flat_sharded(os.path.dirname(path) or ".",
                                  int(m.group(1)))
+    sm = _MONO_RE.fullmatch(os.path.basename(path))
+    fault_point("restore", path=path, step=int(sm.group(1)) if sm else None)
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     manifest = None
@@ -598,6 +705,15 @@ class Checkpointer:
         background write first so an older step never lands after it."""
         if not self.is_chief:
             return None
+        return self.save_fetched(flatten_pytree(state), step)
+
+    def save_fetched(self, flat: dict[str, np.ndarray],
+                     step: int) -> str | None:
+        """Synchronous write of an ALREADY-FETCHED flat snapshot (the
+        coordinated path: every rank fetches collectively, only the chief
+        lands here with the result)."""
+        if not self.is_chief:
+            return None
         self._drain()
         with self._cv:
             prev_error, self._error = self._error, None
@@ -605,7 +721,36 @@ class Checkpointer:
             # superseded by this save: report it, do not fail the save
             print(f"note: a background checkpoint write had failed: "
                   f"{prev_error}")
-        path = save_checkpoint(self.directory, state, step, self.max_to_keep)
+        path = _write_flat(self.directory, flat, step, self.max_to_keep)
+        self._last_save = time.time()
+        return path
+
+    def submit_fetched(self, flat: dict[str, np.ndarray], step: int) -> None:
+        """Background-or-sync write of an already-fetched snapshot, per
+        the ``background`` setting — the cadenced half of the coordinated
+        path. The arrays are copied first: a view of a CPU tensor would
+        change under the writer thread with the next step."""
+        if not self.is_chief:
+            return
+        if self.background:
+            self._submit({k: np.array(v) for k, v in flat.items()}, step)
+            self._last_save = time.time()
+        else:
+            self.save_fetched(flat, step)
+
+    def save_sharded(self, state, step: int,
+                     attempt: str | None = None) -> str:
+        """This rank's shard of a sharded checkpoint — EVERY rank of the
+        grid calls this (chief or not); each writes its own file, no
+        collective anywhere (``save_checkpoint_sharded``). ``attempt``:
+        the agreed per-save nonce (the coordinator's vote or the exit
+        agreement carries it). Synchronous: the fetch is this rank's own
+        slices. Drains a pending background write on the chief first so
+        the index can't regress."""
+        if self.is_chief:
+            self._drain()
+        path = save_checkpoint_sharded(self.directory, state, step,
+                                       self.max_to_keep, attempt=attempt)
         self._last_save = time.time()
         return path
 

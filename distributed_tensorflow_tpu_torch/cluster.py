@@ -20,6 +20,8 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
+from distributed_tensorflow_tpu_torch.utils.faults import fault_point
+
 
 @dataclass
 class ClusterSpec:
@@ -78,6 +80,7 @@ def _initialize_with_retry(init_fn, *, retries: int, backoff_s: float,
     sleep = sleep or time.sleep
     for attempt in range(retries + 1):
         try:
+            fault_point("init", attempt=attempt)
             init_fn()
             return
         except (TypeError, ValueError, KeyError, AttributeError,

@@ -17,6 +17,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from distributed_tensorflow_tpu_torch.utils.faults import fault_point
+
 
 def batch_iterator(dataset, batch_size: int, raw: bool = False) -> Iterator:
     """Endless minibatch stream; ``raw=True`` yields thin-wire (uint8,
@@ -98,7 +100,10 @@ def prefetch_to_device(it: Iterator, size: int = 2,
 
     def _worker():
         try:
-            for batch in it:
+            for count, batch in enumerate(it):
+                # an exception here reaches the consumer as itself: not
+                # a hang and not a silent short epoch
+                fault_point("prefetch", count=count)
                 if cuda:
                     i = _take_slot()
                     if i is None:

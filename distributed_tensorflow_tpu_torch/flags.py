@@ -173,8 +173,8 @@ def define_flags():
                  "coefficient for --moe_experts")
     DEFINE_boolean("expert_parallel", False, "Shard the MoE experts over "
                    "the mesh's model axis (the JAX package's "
-                   "parallel/expert_parallel.py); not yet ported: the "
-                   "port's mesh has no model axis, so setting it raises")
+                   "parallel/expert_parallel.py); not yet ported, so "
+                   "setting it raises")
     DEFINE_boolean("bf16", False, "Run matmuls/convs in bfloat16")
     DEFINE_boolean("pallas", False, "Run the deep_cnn wd1 layer through "
                    "the hand-written CUDA kernel (ops/fused_dense.py); the "
@@ -273,7 +273,7 @@ def define_flags():
                  "stacks, the last spans and its context to stderr and "
                  "the flight recorder. 0 = off. The training loop's "
                  "watchdog around steps and collectives is not ported "
-                 "yet")
+                 "yet: the training entry refuses > 0")
     DEFINE_boolean("watchdog_abort", False, "After a watchdog report, "
                    "hard-exit the process (status 124) instead of "
                    "waiting on. Requires --watchdog_s > 0")
@@ -285,9 +285,8 @@ def define_flags():
                   "point[:key=value]... — e.g. 'serve_batch:mode=error', "
                   "'serve_reload:mode=torn_file'. Empty (default) injects "
                   "nothing; the DTT_FAULT_SPEC env var is the fallback "
-                  "for subprocesses. The serving points (serve_admit, "
-                  "serve_batch, serve_reload) are wired; the training "
-                  "points parse but are not called yet")
+                  "for subprocesses. Every point but 'preempt' is wired; "
+                  "the training entry refuses 'preempt'")
     FLAGS._register_validator(_validate_flags)
     FLAGS._register_validator(_validate_serving_scheduler_flags)
     FLAGS._register_validator(_validate_telemetry_flags)
@@ -422,10 +421,20 @@ def define_reference_flags():
                    "resyncs in --ps_mirror mode (bounds any numeric drift "
                    "between the ps-side and card-side applies)")
     DEFINE_boolean("sharded_checkpoint", True, "Cross-host-sharded state "
-                   "checkpoints as per-process shard files. Every state "
-                   "this package trains is fetchable by one process, which "
-                   "always writes the monolithic file; the sharded format "
-                   "is read (restore, --eval_only, the inspect CLI)")
+                   "checkpoints as per-process shard files (each rank "
+                   "writes its locally-owned slices; NO allgather — the "
+                   "save moves 1/P of the model per rank instead of "
+                   "O(model) to one). Restore reassembles from the "
+                   "complete set; --eval_only and the inspect CLI read "
+                   "both formats. =false keeps the monolithic single-file "
+                   "format. Locally-fetchable state always writes the "
+                   "monolithic file")
+    DEFINE_integer("model_axis", 1, "Tensor-parallel ways on the mesh's "
+                   "'model' axis (sync mode): the CNN's FC stack is "
+                   "column/row-split and the collectives are inserted "
+                   "at the split boundaries. 1 = pure data parallelism "
+                   "(reference-equivalent). Ranks r*m..r*m+m-1 of the "
+                   "--worker_hosts group form one model group")
     DEFINE_boolean("async_checkpoint", True, "Write cadenced checkpoints "
                    "from a background thread (the state is fetched to "
                    "host on the training thread, then serialized and "
@@ -467,6 +476,7 @@ def define_reference_flags():
                    "window")
     FLAGS._register_validator(_validate_training_flags)
     FLAGS._register_validator(_validate_zero_flags)
+    FLAGS._register_validator(_validate_model_axis_flags)
 
 
 def _require(values: dict, name: str, check, what: str):
@@ -614,6 +624,80 @@ def _validate_zero_flags(values: dict):
             f"--zero={z} requires sync mode (a torch.distributed group "
             f"to shard over); --mode=local has none. Use --mode=sync "
             f"with --worker_hosts (one worker makes a group of one)")
+
+
+def _validate_model_axis_flags(values: dict):
+    """--model_axis's parse-time checks: a model axis needs the sync
+    mode's process grid, and composes with none of ZeRO, the ps
+    topology, the device-resident split or the MoE LM in this build.
+    The loop re-checks what depends on the resolved mode and the model
+    (``training/loop.py``)."""
+    m = int(values.get("model_axis") or 1)
+    if m < 1:
+        raise ValueError(f"--model_axis={m} must be >= 1 (1 = pure data "
+                         f"parallelism)")
+    if m == 1:
+        return
+    mode = values.get("mode") or "auto"
+    if mode == "ps" or values.get("ps_hosts") or values.get("job_name"):
+        raise ValueError(
+            f"--model_axis={m} requires sync mode (a process grid of "
+            f"data x model ranks); the ps topology (--ps_hosts/"
+            f"--job_name) is asynchronous and has no model axis. Drop "
+            f"them and use --mode=sync")
+    workers = [h for h in (values.get("worker_hosts") or "").split(",") if h]
+    if mode == "local" or (mode == "auto" and len(workers) <= 1):
+        # --mode=auto with one worker resolves to local (cluster.resolve_mode)
+        raise ValueError(
+            f"--model_axis={m} requires sync mode (a device mesh); got "
+            f"mode='local'. Use --mode=sync.")
+    if int(values.get("zero") or 0):
+        raise ValueError(
+            f"--zero={values.get('zero')} with --model_axis={m} is not "
+            f"supported: ZeRO shards the whole TrainState over the DATA "
+            f"axis while --model_axis shards the FC stack / blocks over "
+            f"the model axis — the two state layouts collide. Drop one")
+    if values.get("device_data"):
+        raise ValueError(
+            f"--device_data with --model_axis={m} is not yet ported to "
+            f"distributed_tensorflow_tpu_torch: a CUDA graph cannot "
+            f"capture gloo's host-staged collectives, and only NCCL on "
+            f"several cards could show it (ROADMAP queue 1). Drop "
+            f"--device_data")
+    if int(values.get("moe_experts") or 0):
+        raise ValueError(
+            f"--moe_experts with --model_axis={m} is not yet ported to "
+            f"distributed_tensorflow_tpu_torch: the MoE LM under a model "
+            f"axis is expert parallelism, which comes later (ROADMAP "
+            f"queue 1). Drop --moe_experts or --model_axis")
+
+
+def training_entry_error(FLAGS) -> str | None:
+    """Why the training entry cannot run these flags, or None: a
+    --fault_spec (or DTT_FAULT_SPEC) naming ``preempt`` and
+    --watchdog_s > 0 arm paths this package's training loop does not
+    have yet (``training/elastic.py``'s preemption poll, the loop's
+    hang watchdog), so they are refused rather than left to arm a rule
+    that never fires."""
+    import os
+
+    from distributed_tensorflow_tpu_torch.utils.faults import (
+        parse_fault_spec,
+    )
+
+    spec = getattr(FLAGS, "fault_spec", "") or os.environ.get(
+        "DTT_FAULT_SPEC", "")
+    if any(r.point == "preempt" for r in parse_fault_spec(spec)):
+        return ("--fault_spec names 'preempt': the preemption poll "
+                "(training/elastic.py) is not yet ported to "
+                "distributed_tensorflow_tpu_torch, so the rule would "
+                "never fire on the training entry")
+    if float(getattr(FLAGS, "watchdog_s", 0.0) or 0.0) > 0:
+        return ("--watchdog_s > 0: the training loop's hang watchdog "
+                "around steps and collectives is not yet ported to "
+                "distributed_tensorflow_tpu_torch (it arms serving only), "
+                "so the training entry refuses it")
+    return None
 
 
 def _validate_flags(values: dict):

@@ -9,7 +9,9 @@ default; without a card it exits non-zero, and ``--device cpu`` runs on
 the CPU). Sync mode is synchronous data parallelism, one process per
 device: each worker joins a ``torch.distributed`` group (NCCL on cards,
 gloo on the CPU) through worker 0's address, trains on its share of the
-batch, and the gradients are averaged every step. With ``--ps_hosts`` it
+batch, and the gradients are averaged every step; ``--model_axis m``
+makes the group a data x m grid whose rows split the model
+(``parallel/tensor_parallel.py``). With ``--ps_hosts`` it
 is the reference's asynchronous topology (``parallel/ps_emulation.py``):
 ``--job_name=ps`` serves a shard of the params from the host until a
 shutdown message, ``--job_name=worker`` computes gradients on its
@@ -28,6 +30,13 @@ Examples:
       --device cuda:1 --device_data
   python -m distributed_tensorflow_tpu_torch.mnist_dist --device cpu \\
       --training_iter 3
+  # tensor parallelism: a 1x2 grid (data x model) of gloo ranks on the CPU
+  python -m distributed_tensorflow_tpu_torch.mnist_dist --mode sync \\
+      --model_axis 2 --worker_hosts localhost:2222,localhost:2222 \\
+      --task_index 0 --device cpu &
+  python -m distributed_tensorflow_tpu_torch.mnist_dist --mode sync \\
+      --model_axis 2 --worker_hosts localhost:2222,localhost:2222 \\
+      --task_index 1 --device cpu
   # the reference's ps topology: one ps, two workers on one card
   python -m distributed_tensorflow_tpu_torch.mnist_dist --job_name=ps \\
       --task_index=0 --ps_hosts=localhost:2222 \\
@@ -65,6 +74,10 @@ def main(_):
         train,
     )
 
+    err = flags.training_entry_error(FLAGS)
+    if err is not None:
+        print(f"error: {err}", file=sys.stderr)
+        return 2
     if FLAGS.eval_only:
         # restore-and-measure, no training, before the role demux
         evaluate_only(FLAGS)

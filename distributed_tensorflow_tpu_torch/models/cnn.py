@@ -24,6 +24,10 @@ from torch import nn
 from distributed_tensorflow_tpu_torch.models.registry import register_model
 from distributed_tensorflow_tpu_torch.ops import nn as ops
 from distributed_tensorflow_tpu_torch.ops.fused_dense import fused_dense_relu
+from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    reduce_from_model,
+)
 
 
 @register_model("deep_cnn")
@@ -36,6 +40,13 @@ class DeepCNN(nn.Module):
     same command lines work on both packages) runs the ``wd1`` layer
     through the hand-written CUDA kernel ``ops.fused_dense.fused_dense_relu``
     instead of ``relu(dense(...))``.
+
+    Under a model axis (``model.tp``, set by ``make_tp_train_step`` and
+    ``make_tp_eval_step``) the module holds its rank's column block of ``wd1``/``bd1``
+    and row block of ``out``: ``wd1`` (through the kernel with
+    ``use_pallas``) runs on the column shard, each rank keeps its columns
+    of the full dropout mask, and the partial ``out`` products sum over
+    the model group before the bias is added once.
     """
 
     def __init__(self, image_size: int = 28, channels: int = 1,
@@ -93,6 +104,9 @@ class DeepCNN(nn.Module):
 
         # NHWC flatten: wd1's rows are in (H, W, C) order
         x = x.reshape(-1, self.flat_dim)
+        tp = getattr(self, "tp", None)
+        if tp is not None:
+            x = copy_to_model(x, _check_sharded(self, tp))
         if self.use_pallas:
             if cd is not None:
                 x = fused_dense_relu(x.to(cd), w["wd1"].to(cd),
@@ -101,8 +115,24 @@ class DeepCNN(nn.Module):
                 x = fused_dense_relu(x, w["wd1"], b["bd1"])
         else:
             x = torch.relu(ops.dense(x, w["wd1"], b["bd1"], compute_dtype=cd))
-        x = ops.dropout(x, keep_prob, generator, deterministic=not train)
-        return ops.dense(x, w["out"], b["out"], compute_dtype=cd)
+        if tp is None:
+            x = ops.dropout(x, keep_prob, generator, deterministic=not train)
+            return ops.dense(x, w["out"], b["out"], compute_dtype=cd)
+        x = ops.dropout(x, keep_prob, generator, deterministic=not train,
+                        shard=(tp.model_index, tp.model))
+        y = reduce_from_model(ops.dense(x, w["out"], compute_dtype=cd), tp)
+        return y + b["out"].to(y.dtype)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+
+def _check_sharded(model: DeepCNN, mesh):
+    """``mesh``, once the module holds its column of wd1: a tensor-parallel
+    forward over the full matrix would sum m copies of the output."""
+    if model.weights["wd1"].shape[1] * mesh.model != model.hidden_units:
+        raise RuntimeError(
+            "the model runs tensor-parallel but holds the full wd1: cut "
+            "the state to this rank's shards first "
+            "(parallel.tensor_parallel.shard_state_tp)")
+    return mesh

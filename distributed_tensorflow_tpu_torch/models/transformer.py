@@ -13,8 +13,12 @@ H, Dh), ``proj`` (H*Dh, d), ``ln2_g``, ``ln2_b``, ``mlp_in`` {w, b} and
 is one set of functions (``_attn_half_kv``, ``_mlp_half``) that the
 training forward and the serving decode (``serving/decode.py``) both run.
 
-Sequence parallelism (``seq_axis``, ring attention) and expert
-parallelism (``moe_axis``) come with a later slice and raise here.
+Tensor parallelism (``model.tp``, ``parallel/tensor_parallel.py``) runs
+each block on its rank's heads and MLP columns, with one sum over the
+model group after ``proj`` and one after ``mlp_out``; embeddings, layer
+norms and the head stay replicated. Sequence parallelism (``seq_axis``,
+ring attention) and expert parallelism (``moe_axis``) come with a later
+slice and raise here.
 """
 
 from __future__ import annotations
@@ -31,6 +35,10 @@ from distributed_tensorflow_tpu_torch.ops.attention import (
     multi_head_attention,
 )
 from distributed_tensorflow_tpu_torch.ops.moe import switch_moe
+from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    reduce_from_model,
+)
 
 
 def _layernorm(x, gain, bias, eps: float = 1e-5):
@@ -105,30 +113,46 @@ def _qkv(y, blk: _Block):
     return out[..., 0, :, :], out[..., 1, :, :], out[..., 2, :, :]
 
 
-def _attn_half_kv(h, blk: _Block, attn_fn, cd):
+def _attn_half_kv(h, blk: _Block, attn_fn, cd, tp=None):
     """LN -> attention -> residual, also handing back this block's (k, v)
     (B, S, H, Dh) in the attention's input dtype: the serving prefill
-    keeps them as its KV cache. Returns (h_out, k, v)."""
+    keeps them as its KV cache. Returns (h_out, k, v). Under a model
+    axis (``tp``, the grid mesh) the block holds its rank's heads: the
+    attention runs on them, and the row-split ``proj``'s partial outputs
+    sum over the model group."""
     y = _layernorm(h, blk.ln1_g, blk.ln1_b)
+    if tp is not None:
+        y = copy_to_model(y, tp)
     q, k, v = _qkv(y, blk)
     a = attn_fn(q, k, v)
     a = a.reshape(*a.shape[:2], -1)  # (B, S, H*Dh)
-    return h + ops.dense(a, blk.proj, compute_dtype=cd), k, v
+    out = ops.dense(a, blk.proj, compute_dtype=cd)
+    if tp is not None:
+        out = reduce_from_model(out, tp)
+    return h + out, k, v
 
 
-def _mlp_half(h, blk: _Block, cd):
-    """LN -> relu MLP -> residual: the block's second half."""
+def _mlp_half(h, blk: _Block, cd, tp=None):
+    """LN -> relu MLP -> residual: the block's second half. Under a model
+    axis ``mlp_in`` is column-split and ``mlp_out`` row-split: the
+    partial outputs sum over the model group, then the bias adds once."""
     y = _layernorm(h, blk.ln2_g, blk.ln2_b)
+    if tp is not None:
+        y = copy_to_model(y, tp)
     y = torch.relu(ops.dense(y, blk.mlp_in["w"], blk.mlp_in["b"],
                              compute_dtype=cd))
-    return h + ops.dense(y, blk.mlp_out["w"], blk.mlp_out["b"],
-                         compute_dtype=cd)
+    if tp is None:
+        return h + ops.dense(y, blk.mlp_out["w"], blk.mlp_out["b"],
+                             compute_dtype=cd)
+    out = reduce_from_model(ops.dense(y, blk.mlp_out["w"], compute_dtype=cd),
+                            tp)
+    return h + (out + blk.mlp_out["b"].to(out.dtype))
 
 
-def _transformer_block(h, blk: _Block, attn_fn, cd):
+def _transformer_block(h, blk: _Block, attn_fn, cd, tp=None):
     """One pre-LN block: LN -> attention -> residual -> LN -> MLP ->
     residual. ``attn_fn(q, k, v)`` picks the attention form."""
-    return _mlp_half(_attn_half_kv(h, blk, attn_fn, cd)[0], blk, cd)
+    return _mlp_half(_attn_half_kv(h, blk, attn_fn, cd, tp)[0], blk, cd, tp)
 
 
 def _transformer_block_moe(h, blk: _Block, attn_fn, cd,
@@ -154,10 +178,12 @@ def _call_block(fn, remat: bool, *args):
     return fn(*args)
 
 
-def _run_blocks(h, blocks, attn_fn, cd, remat: bool):
-    """The dense blocks in order (``remat`` as in ``_call_block``)."""
+def _run_blocks(h, blocks, attn_fn, cd, remat: bool, tp=None):
+    """The dense blocks in order (``remat`` as in ``_call_block``; under
+    ``remat`` a tensor-parallel block's forward collectives run again in
+    the backward pass, on every rank of the group alike)."""
     for blk in blocks:
-        h = _call_block(_transformer_block, remat, h, blk, attn_fn, cd)
+        h = _call_block(_transformer_block, remat, h, blk, attn_fn, cd, tp)
     return h
 
 
@@ -168,6 +194,25 @@ def _trunc_normal(generator, stddev: float = 0.02):
         nn.init.trunc_normal_(p, mean=0.0, std=stddev, a=-2 * stddev,
                               b=2 * stddev, generator=generator)
     return w
+
+
+def _tp_of(model):
+    """The grid mesh a tensor-parallel model runs over (``model.tp``, set
+    by ``make_tp_train_step``/``make_tp_eval_step``), checked
+    against the heads the blocks hold, or None."""
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        return None
+    if getattr(model, "moe_experts", 0):
+        raise NotImplementedError(
+            "the MoE LM under a model axis is expert parallelism, not yet "
+            "ported to distributed_tensorflow_tpu_torch")
+    if model.blocks[0].qkv.shape[2] * tp.model != model.num_heads:
+        raise RuntimeError(
+            "the model runs tensor-parallel but holds every head: cut the "
+            "state to this rank's shards first "
+            "(parallel.tensor_parallel.shard_state_tp)")
+    return tp
 
 
 def _refuse_unported(seq_axis, moe_axis=None) -> None:
@@ -274,7 +319,7 @@ class MiniTransformer(_TransformerBase):
         h = ops.dense(x, self.embed["w"], self.embed["b"], compute_dtype=cd)
         h = h + self.pos.to(h.dtype)
         h = _run_blocks(h, self.blocks, multi_head_attention, cd,
-                        self.remat)
+                        self.remat, _tp_of(self))
         h = _layernorm(h, self.ln_f["g"], self.ln_f["b"])
         pooled = h.sum(dim=1) / torch.tensor(self.seq_len, dtype=h.dtype)
         pooled = ops.dropout(pooled, keep_prob, generator,
@@ -376,7 +421,8 @@ class TransformerLM(_TransformerBase):
                                     self.moe_capacity)
                 lb_total = lb if lb_total is None else lb_total + lb
         else:
-            h = _run_blocks(h, self.blocks, self.attention, cd, self.remat)
+            h = _run_blocks(h, self.blocks, self.attention, cd, self.remat,
+                            _tp_of(self))
         h = _layernorm(h, self.ln_f["g"], self.ln_f["b"])
         return (ops.dropout(h, keep_prob, generator,
                             deterministic=not train), lb_total)

@@ -96,13 +96,25 @@ def normalize_if_u8(x, compute_dtype=None):
     return x
 
 
-def dropout(x, keep_prob, generator=None, *, deterministic: bool = False):
+def dropout(x, keep_prob, generator=None, *, deterministic: bool = False,
+            shard: tuple[int, int] | None = None):
     """Inverted dropout. ``deterministic=True`` or no ``generator`` is the
-    eval path (identity). ``keep_prob == 0`` zeroes everything."""
+    eval path (identity). ``keep_prob == 0`` zeroes everything.
+
+    ``shard=(i, n)``: ``x`` is column block ``i`` of ``n`` of a wider
+    activation (a tensor-parallel shard). The mask of the full width is
+    drawn and block ``i`` kept, so the ranks of a model group, drawing
+    from one seed, apply the one-rank run's mask column for column."""
     if deterministic or generator is None:
         return x
-    mask = torch.rand(x.shape, generator=generator,
-                      device=x.device) < keep_prob
+    if shard is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        i, n = shard
+        w = x.shape[-1]
+        u = torch.rand((*x.shape[:-1], w * n), generator=generator,
+                       device=x.device)[..., i * w:(i + 1) * w]
+    mask = u < keep_prob
     scale = 1.0 / keep_prob if keep_prob > 0 else 0.0
     return torch.where(mask, x * scale, torch.zeros_like(x))
 

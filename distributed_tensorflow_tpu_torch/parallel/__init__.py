@@ -1,5 +1,6 @@
-"""Parallelism: the data mesh, synchronous data parallelism on
-``torch.distributed``, its ZeRO-sharded form, and the asynchronous
+"""Parallelism: the mesh (data, or a data x model grid), synchronous data
+parallelism on ``torch.distributed``, its ZeRO-sharded form, tensor
+parallelism over the grid's model axis, and the asynchronous
 parameter-server topology."""
 
 from distributed_tensorflow_tpu_torch.parallel.data_parallel import (  # noqa: F401
@@ -10,7 +11,11 @@ from distributed_tensorflow_tpu_torch.parallel.data_parallel import (  # noqa: F
     replicate_state,
 )
 from distributed_tensorflow_tpu_torch.parallel.mesh import (  # noqa: F401
+    DATA_AXIS,
+    MODEL_AXIS,
     DataMesh,
+    GridMesh,
+    MeshSpec,
     make_mesh,
 )
 from distributed_tensorflow_tpu_torch.parallel.ps_emulation import (  # noqa: F401
@@ -23,6 +28,18 @@ from distributed_tensorflow_tpu_torch.parallel.ps_emulation import (  # noqa: F4
     ps_unsupported_flag_error,
     run_parameter_server,
     run_worker,
+)
+from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (  # noqa: F401
+    copy_to_model,
+    has_tp_specs,
+    make_tp_eval_step,
+    make_tp_train_step,
+    reduce_from_model,
+    shard_state_tp,
+    stage_batch_tp,
+    tp_clip_transform,
+    tp_comm_rows,
+    tp_param_specs,
 )
 from distributed_tensorflow_tpu_torch.parallel.zero import (  # noqa: F401
     DEFAULT_BUCKET_MB,

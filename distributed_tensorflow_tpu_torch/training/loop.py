@@ -24,13 +24,19 @@ more than one process agree on a stop every ``--coord_steps`` steps.
 ``--zero 1|3`` shards the sync run's optimizer state (and at level 3 its
 parameters) over the ranks (``parallel/zero.py``); the standard-layout
 state then exists only as the host copy that a collective fetch makes at
-the steps every rank agrees on (``_ZeroSession``).
+the steps every rank agrees on (``_ZeroSession``). ``--model_axis m``
+makes the group a data x m grid whose rows split the model
+(``parallel/tensor_parallel.py``, ``_TPSession``): every checkpoint is
+then a coordinated one, each rank writing its own slices.
+``--fault_spec`` is armed at the start of ``train`` and
+``evaluate_only``.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import secrets
 import time
 from dataclasses import dataclass
 
@@ -45,6 +51,7 @@ from distributed_tensorflow_tpu_torch.checkpoint import (
     restore_with_fallback,
 )
 from distributed_tensorflow_tpu_torch.cluster import ClusterSpec
+from distributed_tensorflow_tpu_torch.flags import training_entry_error
 from distributed_tensorflow_tpu_torch.data import (
     batch_iterator,
     prefetch_to_device,
@@ -59,6 +66,16 @@ from distributed_tensorflow_tpu_torch.parallel import (
     make_dp_train_step,
     make_mesh,
     replicate_state,
+)
+from distributed_tensorflow_tpu_torch.parallel.mesh import GridMesh, MeshSpec
+from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
+    _check_divisibility,
+    has_tp_specs,
+    make_tp_eval_step,
+    make_tp_train_step,
+    shard_state_tp,
+    tp_clip_transform,
+    tp_param_specs,
 )
 from distributed_tensorflow_tpu_torch.parallel.zero import (
     _check_level,
@@ -89,6 +106,7 @@ from distributed_tensorflow_tpu_torch.training.train_state import (
     params_of,
     state_of,
 )
+from distributed_tensorflow_tpu_torch.utils import faults
 from distributed_tensorflow_tpu_torch.utils.metrics import MetricsLogger
 from distributed_tensorflow_tpu_torch.utils.pytree import _BF16_TAG
 from distributed_tensorflow_tpu_torch.utils.profiling import (
@@ -224,13 +242,24 @@ def train(FLAGS, mode: str = "local") -> TrainResult:
             f"train runs mode 'local' or 'sync', not {mode!r}; the ps "
             f"topology's roles run in parallel.ps_emulation "
             f"(run_parameter_server, run_worker)")
+    _configure_faults(FLAGS)
     return _train_once(FLAGS, mode)
 
 
-def _sync_mesh(FLAGS, device: torch.device):
-    """The data mesh of the group the caller joined, checked against the
-    flags."""
-    mesh = make_mesh(device)
+def _configure_faults(FLAGS) -> None:
+    """Arm ``--fault_spec`` (or DTT_FAULT_SPEC) for this run, after
+    refusing what the training entry cannot run
+    (``flags.training_entry_error``)."""
+    err = training_entry_error(FLAGS)
+    if err is not None:
+        raise ValueError(err)
+    faults.configure_from_flags(FLAGS)
+
+
+def _sync_mesh(FLAGS, device: torch.device, model_axis: int = 1):
+    """The mesh of the group the caller joined (a data x ``model_axis``
+    grid when ``model_axis`` > 1), checked against the flags."""
+    mesh = make_mesh(device, MeshSpec(data=-1, model=model_axis))
     workers = ClusterSpec.from_flags(FLAGS).num_tasks("worker")
     if (mesh.rank, mesh.world_size) != (FLAGS.task_index, workers):
         raise ValueError(
@@ -247,11 +276,14 @@ class _Session:
 
     def __init__(self, FLAGS, model, ds, mesh):
         n_chips = mesh.world_size if mesh is not None else 1
+        # a tensor-parallel model evaluates through every rank's shards
+        self.collective = isinstance(mesh, GridMesh)
         self.sv = Supervisor(is_chief=(FLAGS.task_index == 0),
                              logdir=FLAGS.logdir,
                              save_model_secs=FLAGS.save_model_secs,
                              max_to_keep=max_to_keep_from_flags(FLAGS),
-                             background=background_save_from_flags(FLAGS))
+                             background=background_save_from_flags(FLAGS),
+                             sharded_spanning=bool(FLAGS.sharded_checkpoint))
         self.logger = MetricsLogger(FLAGS.logdir if self.sv.is_chief
                                     else None,
                                     job_name=FLAGS.job_name or "worker",
@@ -259,7 +291,8 @@ class _Session:
         self.meter = Throughput(FLAGS.batch_size, n_chips)
         self.stimer = StepTimer()
         self.periodic_eval = _periodic_test_eval(FLAGS, self.sv, model, ds,
-                                                 self.logger)
+                                                 self.logger,
+                                                 collective=self.collective)
         self.mesh = mesh
         self.sync_every = (collective_sync_cadence(mesh.backend, n_chips)
                            if mesh is not None else 0)
@@ -306,6 +339,36 @@ class _Session:
         # the run's steady state: the window after the warm-up
         self.logger.scalars(step, {"images_per_sec": images_per_sec,
                                    **self.stimer.scalars()})
+
+
+class _TPSession(_Session):
+    """The session of a ``--model_axis`` run. The restored or fresh full
+    state is rank 0's on every rank, then cut to each rank's shards
+    (``shard_state_tp``); from there no rank holds the state whole, so a
+    checkpoint is a coordinated one, entered by every rank at a step the
+    vote agreed on: the chief's cadence bit routes every rank into
+    ``Supervisor.checkpoint_coordinated`` with the vote's attempt token.
+    The periodic and final evaluations run on every rank (the forward's
+    collectives), the chief alone prints and logs, and the reference's
+    display line comes from task 0 only."""
+
+    def start(self, box):
+        state, step = super().start(box)
+        state = shard_state_tp(state, self.mesh)
+        box.update(state, step)
+        return state, step
+
+    def after_step(self, state, step: int) -> None:
+        self.periodic_eval(state, step)
+        self.coord.tick(step)
+        if self.coord.cadence_due():
+            self.sv.checkpoint_coordinated(state, step,
+                                           attempt=self.coord.token)
+
+    def display(self, step: int, metrics: dict) -> dict:
+        if self.sv.is_chief:
+            return super().display(step, metrics)
+        return {k: float(v) for k, v in metrics.items()}
 
 
 class _ZeroSession(_Session):
@@ -394,11 +457,25 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
             f"--zero={level} requires sync mode (a torch.distributed group "
             f"to shard over); got mode={mode!r}. Use --mode=sync with "
             f"--worker_hosts (one worker makes a group of one)")
+    model_axis = max(1, FLAGS.model_axis)
+    if model_axis > 1 and mode != "sync":
+        raise ValueError(
+            f"--model_axis={model_axis} requires sync mode (a device mesh); "
+            f"got mode={mode!r}. Use --mode=sync."
+        )
+    if model_axis > 1 and (level or FLAGS.device_data or FLAGS.moe_experts):
+        raise ValueError(
+            f"--model_axis={model_axis} does not compose with --zero, "
+            f"--device_data or --moe_experts in this build (ROADMAP "
+            f"queue 1)")
     device = _full_f32_on(FLAGS.device)
-    mesh = _sync_mesh(FLAGS, device) if mode == "sync" else None
+    mesh = (_sync_mesh(FLAGS, device, model_axis) if mode == "sync"
+            else None)
     n_chips = mesh.world_size if mesh is not None else 1
-    # every process draws its own minibatches (MNISTDist.py:167,178)
-    data_seed = FLAGS.seed + (mesh.rank if n_chips > 1 else 0)
+    # every process draws its own minibatches (MNISTDist.py:167,178);
+    # the ranks of one model group read the same ones
+    data_seed = FLAGS.seed + (0 if mesh is None else
+                              getattr(mesh, "data_index", mesh.rank))
     ds = read_data_sets(FLAGS.data_dir, one_hot=True, dataset=FLAGS.dataset,
                         seed=data_seed,
                         validation_size=FLAGS.validation_size,
@@ -411,11 +488,25 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
         else None
     augment = augment_for(FLAGS, ds.meta)
     accum = max(1, FLAGS.accum_steps)
-    if mesh is not None:
+    if model_axis > 1:
+        feed_batch = FLAGS.batch_size // _check_tp(FLAGS, state, mesh, accum)
+    elif mesh is not None:
         feed_batch = local_batch_size(FLAGS.batch_size, mesh)
     else:
         feed_batch = FLAGS.batch_size
-    if level:
+    if model_axis > 1:
+        # tensor parallelism (+DP over the grid's columns):
+        # parallel/tensor_parallel.py
+        clip = (tp_clip_transform(FLAGS.clip_norm, state.params, mesh)
+                if FLAGS.clip_norm > 0 else None)
+        step_fn = make_tp_train_step(model, opt, mesh,
+                                     keep_prob=FLAGS.keep_prob,
+                                     grad_transform=clip, accum_steps=accum,
+                                     augment_fn=augment)
+        tp_eval = make_tp_eval_step(model, mesh)
+        eval_fn = lambda state, batch: tp_eval(  # noqa: E731
+            batch, state.model_state)
+    elif level:
         clip, step_fn, eval_fn = _zero_fns(FLAGS, model, opt, mesh, level,
                                            accum, augment)
     elif mesh is not None:
@@ -437,8 +528,12 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
         raise ValueError(f"each process's batch of {feed_batch} (of "
                          f"--batch_size={FLAGS.batch_size}) must be "
                          f"divisible by --accum_steps={accum}")
-    run = (_ZeroSession(FLAGS, model, ds, mesh, level) if level
-           else _Session(FLAGS, model, ds, mesh))
+    if level:
+        run = _ZeroSession(FLAGS, model, ds, mesh, level)
+    elif model_axis > 1:
+        run = _TPSession(FLAGS, model, ds, mesh)
+    else:
+        run = _Session(FLAGS, model, ds, mesh)
     if FLAGS.device_data:
         if accum > 1:
             raise ValueError("--accum_steps splits host-fed batches; a "
@@ -482,6 +577,34 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
         finally:
             batches.close()
     return _finish(FLAGS, run, model, ds, *out)
+
+
+def _check_tp(FLAGS, state, mesh, accum: int) -> int:
+    """The model-axis run's checks, before any state is placed: the
+    model has a split rule, the model axis divides its split dims, the
+    global batch and its microbatches split over the data ways. Returns
+    the data ways."""
+    if not has_tp_specs(state.params):
+        raise ValueError(
+            f"--model_axis={mesh.model} but model {FLAGS.model!r} has no "
+            f"tensor-parallel sharding rule — every parameter would "
+            f"replicate and the extra devices would do redundant work. "
+            f"Use --model_axis=1 (data parallelism) for this model."
+        )
+    _check_divisibility(state.params, tp_param_specs(state.params), mesh)
+    data_ways = mesh.data
+    if FLAGS.batch_size % data_ways:
+        raise ValueError(
+            f"--batch_size={FLAGS.batch_size} must be divisible by the "
+            f"{data_ways}-way data axis"
+        )
+    if accum > 1 and (FLAGS.batch_size // accum) % data_ways:
+        raise ValueError(
+            f"each of the {accum} microbatches "
+            f"({FLAGS.batch_size // accum} examples) must split over "
+            f"the {data_ways}-way data axis"
+        )
+    return data_ways
 
 
 def _train_device_resident(FLAGS, device, ds, model, state, run, eval_fn,
@@ -586,7 +709,8 @@ def _finish(FLAGS, run, model, ds, state, step, last_display,
             images_per_sec, busy) -> TrainResult:
     test_metrics = _final_test_eval(FLAGS, run.sv, run.periodic_eval, model,
                                     state, ds, run.logger, step,
-                                    run.meter.n_chips)
+                                    run.meter.n_chips,
+                                    collective=run.collective)
     print("Optimization Finished!")
     run.logger.close()
     return TrainResult(final_step=step, train_metrics=last_display,
@@ -611,9 +735,12 @@ class _HostCoordinator:
     lands at the agreed step. Between boundaries ``should_stop`` reads
     the cached result; ``cadence_due`` is the vote's cadence bit on the
     step of a vote and False between votes, so a ``--zero`` run enters
-    its collective fetch for the chief's cadence on every rank at once.
-    The JAX package's vote also carries elastic-membership and straggler
-    columns and the sharded checkpoint's nonce; their modules are not
+    its collective fetch, and a ``--model_axis`` run its coordinated
+    save, for the chief's cadence on every rank at once. ``token`` is
+    the vote's third column, rank 0's random draw as 8 hex digits: the
+    sharded checkpoint's per-attempt nonce, agreed here so the save
+    itself stays collective-free. The JAX package's vote also carries
+    elastic-membership and straggler columns; their modules are not
     ported."""
 
     def __init__(self, sv, every: int, mesh):
@@ -625,6 +752,7 @@ class _HostCoordinator:
         self._stop = False
         self._cadence = False
         self._boundary = None
+        self.token = None
 
     def should_stop(self) -> bool:
         return self._stop
@@ -641,12 +769,15 @@ class _HostCoordinator:
             return
         self._boundary = boundary
         mine = torch.tensor([int(self._sv.should_stop()),
-                             int(self._sv.checkpointer.cadence_due())],
+                             int(self._sv.checkpointer.cadence_due()),
+                             secrets.randbits(31)],
                             dtype=torch.int32, device=self._device)
         votes = [torch.empty_like(mine) for _ in range(self._mesh.world_size)]
         dist.all_gather(votes, mine, group=self._mesh.group)
-        votes = torch.stack(votes).amax(0)
-        self._stop, self._cadence = bool(votes[0]), bool(votes[1])
+        votes = torch.stack(votes).cpu()
+        self._stop = bool(votes[:, 0].max())
+        self._cadence = bool(votes[:, 1].max())
+        self.token = format(int(votes[0, 2]), "08x")
 
 
 # Idle host time at each end of a profiled window on a card. The tracer
@@ -707,6 +838,7 @@ def evaluate_only(FLAGS) -> dict[str, float]:
     (the ResNet) its ``model_state``, the batch-norm running stats; any
     optimizer layout restores. A stateful model's checkpoint without
     stored stats is refused rather than evaluated with untrained ones."""
+    _configure_faults(FLAGS)
     device = _full_f32_on(FLAGS.device)
     found = latest_checkpoint(FLAGS.logdir)
     if found is None:
@@ -749,11 +881,14 @@ def _eval_batch_for(model, meta: dict) -> int:
     return 1000
 
 
-def _periodic_test_eval(FLAGS, sv, model, ds, logger):
+def _periodic_test_eval(FLAGS, sv, model, ds, logger,
+                        collective: bool = False):
     """(state, step) -> None: full held-out evaluation every
-    ``--eval_step`` steps (once per boundary crossed), on the chief only.
-    With ``--validation_size`` it runs on the validation split, and the
-    test split is left to the final eval."""
+    ``--eval_step`` steps (once per boundary crossed), on the chief only
+    (``collective``: on every rank, whose forward passes are collectives,
+    the chief alone printing and logging). With ``--validation_size`` it
+    runs on the validation split, and the test split is left to the
+    final eval."""
     every = FLAGS.eval_step
     if every <= 0:
         noop = lambda state, step: None  # noqa: E731
@@ -769,7 +904,7 @@ def _periodic_test_eval(FLAGS, sv, model, ds, logger):
         if step // every <= box["done"]:
             return
         box["done"] = step // every
-        if not sv.is_chief:
+        if not (sv.is_chief or collective):
             return
         m = evaluate(model, split,
                      model_state=state.model_state,
@@ -777,6 +912,8 @@ def _periodic_test_eval(FLAGS, sv, model, ds, logger):
         if not use_validation:
             # the end-of-run eval may reuse a result on the test split
             box["last"] = (step, m)
+        if not sv.is_chief:
+            return
         print(f"step: {step} {name} accuracy: {m['accuracy']} "
               f"{name} loss: {m['loss']}")
         logger.scalars(step, {f"{name}_accuracy": m["accuracy"],
@@ -792,12 +929,14 @@ def _periodic_test_eval(FLAGS, sv, model, ds, logger):
 
 
 def _final_test_eval(FLAGS, sv, periodic_eval, model, state, ds, logger,
-                     step, n_chips: int = 1):
+                     step, n_chips: int = 1, collective: bool = False):
     """End-of-run test evaluation on the chief; reuses the periodic eval's
     result when it already covered the final step. In a run of more than
-    one process the others return None: they evaluate, print and log
-    nothing."""
-    if not FLAGS.test_eval or (n_chips > 1 and not sv.is_chief):
+    one process the others return None: they evaluate (only when
+    ``collective``: a tensor-parallel forward needs every rank), print
+    and log nothing."""
+    others = n_chips > 1 and not sv.is_chief
+    if not FLAGS.test_eval or (others and not collective):
         return None
     last = periodic_eval.last_result()
     if last is not None and last[0] == step:
@@ -806,8 +945,11 @@ def _final_test_eval(FLAGS, sv, periodic_eval, model, state, ds, logger,
         test_metrics = evaluate(model, ds.test,
                                 model_state=state.model_state,
                                 batch_size=_eval_batch_for(model, ds.meta))
-        logger.scalars(step, {"test_accuracy": test_metrics["accuracy"],
-                              "test_loss": test_metrics["loss"]})
+        if not others:
+            logger.scalars(step, {"test_accuracy": test_metrics["accuracy"],
+                                  "test_loss": test_metrics["loss"]})
+    if others:
+        return None
     print("test accuracy: ", test_metrics["accuracy"],
           "test loss: ", test_metrics["loss"])
     return test_metrics

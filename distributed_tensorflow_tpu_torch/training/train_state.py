@@ -215,14 +215,33 @@ def apply_gradients(optimizer: Optimizer, state, grads,
     return opt_state
 
 
-def clip_by_global_norm(max_norm: float):
+def clip_by_global_norm(max_norm: float, split=None, group=None):
     """Gradient transform: scale the whole gradient tree so its global L2
-    norm is at most ``max_norm`` (``tf.clip_by_global_norm``)."""
+    norm is at most ``max_norm`` (``tf.clip_by_global_norm``).
+
+    Under a model axis (``split``: one bool per leaf, True for a
+    tensor-parallel shard; ``group``: the model group) the norm is the
+    full model's: the shards' square-sums ``all_reduce`` over the group
+    and each replicated leaf adds once. Summing only the local leaves
+    would clip each rank's shards by its own norm."""
     max_norm = float(max_norm)
 
+    def square_sum(gs):
+        return sum(torch.sum(torch.square(g.float())) for g in gs)
+
     def transform(grads):
-        sq = sum(torch.sum(torch.square(g.float()))
-                 for g in tree_leaves(grads))
+        leaves = tree_leaves(grads)
+        if split is None:
+            sq = square_sum(leaves)
+        else:
+            import torch.distributed as dist
+
+            local = square_sum(g for g, s in zip(leaves, split) if s)
+            local = torch.as_tensor(local, dtype=torch.float32,
+                                    device=leaves[0].device).clone()
+            dist.all_reduce(local, group=group)
+            sq = local + square_sum(g for g, s in zip(leaves, split)
+                                    if not s)
         norm = torch.sqrt(sq)
         scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
         return tree_map(lambda g: (g * scale).to(g.dtype), grads)

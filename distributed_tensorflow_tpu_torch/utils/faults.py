@@ -26,10 +26,13 @@ Modes:
   delay      sleep ``delay`` seconds (default 1.0).
 
 The port calls the serving points (``serve_admit``, ``serve_batch``,
-``serve_reload``). The registry keeps every point of the JAX package, so
-one spec parses the same in both; the training points are called once
-the training loop's recovery paths and ``training/elastic.py`` are
-ported. With no spec configured ``fault_point`` is a no-op (one list
+``serve_reload``), the checkpoint and input points (``ckpt_write``,
+``ckpt_index``, ``ckpt_gc``, ``restore``, ``prefetch``, ``init``) and the
+coordinated save's (``collective_fetch``, ``cancel_gate``,
+``exit_agreement``). The registry keeps every point of the JAX package,
+so one spec parses the same in both; ``preempt`` is called once
+``training/elastic.py`` is ported, and the training entry refuses it.
+With no spec configured ``fault_point`` is a no-op (one list
 check).
 """
 

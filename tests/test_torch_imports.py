@@ -47,7 +47,10 @@ def test_port_and_chip_smoke_import_no_jax():
                 "parallel.zero", "data.lm", "ops.attention",
                 "models.transformer", "serving.decode", "ops.moe",
                 "utils.telemetry", "utils.faults", "serving.reqtrace",
-                "serving.kvpage", "serving.continuous"):
+                "serving.kvpage", "serving.continuous",
+                "parallel.tensor_parallel", "checkpoint.checkpoint",
+                "training.supervisor", "utils.pytree", "data.pipeline",
+                "cluster", "flags", "models.cnn", "training.train_state"):
         assert f"distributed_tensorflow_tpu_torch.{new}" in names
     proc = subprocess.run([sys.executable, "-c", _PROBE, *names,
                            "chip_smoke", "port_kernel_study",

@@ -375,10 +375,10 @@ def test_entry_point_without_a_card_exits_nonzero(tmp_path):
 
 
 def test_entry_point_rejects_flags_of_paths_not_ported(tmp_path):
-    proc = _run_entry(["--device", "cpu", "--model_axis=2",
+    proc = _run_entry(["--device", "cpu", "--seq_parallel",
                        "--logdir", str(tmp_path / "logs")])
     assert proc.returncode == 2
-    assert "unknown flag" in proc.stderr and "--model_axis=2" in proc.stderr
+    assert "unknown flag" in proc.stderr and "--seq_parallel" in proc.stderr
 
 
 def test_entry_point_trains_resnet20_on_cifar10_with_augment(tmp_path):
