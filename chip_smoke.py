@@ -41,7 +41,7 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    around a CUDA graph of many launches over rotating buffers larger than
    L2, beside the least time the card could take;
 7. the ``kernels`` JSON line, the card line, and ``{"ok": true, ...}`` last,
-   after phase 15;
+   after phase 16;
 8. device-resident sync DP: a one-rank NCCL group on
    ``tcp://127.0.0.1:<free port>``, then ``train(FLAGS, mode="sync")`` with
    ``--device_data --pallas`` in f32 and in bf16 (each step one CUDA graph
@@ -74,8 +74,10 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    distributed_tensorflow_tpu_torch.mnist_dist`` subprocesses on
    127.0.0.1 ports, ``worker/0`` in this process through the same
    ``mnist_dist.main`` (deep_cnn ``--pallas``, adam 1e-3, batch 128, in
-   f32 and with ``--bf16 --ps_wire bf16``): two workers must reach test
-   accuracy 0.98 within 600 global steps with the mirror cycle, while
+   f32 and with ``--bf16 --ps_wire bf16``), every worker reading one
+   ``--data_dir``, as the reference's do: the synthetic digits written
+   once as an MNIST-format (IDX) split. Two workers must reach test
+   accuracy 0.98 within 400 global steps with the mirror cycle, while
    the ps holds no CUDA context (not in ``nvidia-smi``'s compute apps,
    no ``/dev/nvidia<N>`` open); worker/0's kernel launches must equal
    its cycles, display evals and test-eval batches, all "tma"; the
@@ -85,8 +87,8 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    land the ps within 1e-5 of each leaf's scale of 20 full-pull cycles
    (keep_prob 1, cuDNN deterministic); then global steps/s, images/s
    over both workers and worker/0's per-cycle split (pull, upload,
-   grad, download, push) with the mirror on and off on either wire, in
-   turns, and the device's busy share over 20 of worker/0's cycles;
+   grad, download, push) with the mirror on, then off, on either wire,
+   and the device's busy share over 20 of worker/0's cycles;
 11. ZeRO-sharded sync DP on phase 8's one-rank NCCL group, in f32 and in
    bf16: 20 graph-replayed device steps each of ``--zero 1``, ``--zero
    3`` and ``--zero 3 --zero_overlap`` against 20 of phase 8's replicated
@@ -201,7 +203,26 @@ Drives ``distributed_tensorflow_tpu_torch`` only, never JAX, in phases:
    and by one rank, the two within phase 5's f32 bar; (d) ms/step and
    busy share of (a) and (b) on each rank, printed as gloo-staged, not a
    TP time; (e) after phase 6, the kernel's times at the column shards'
-   shapes (M 128 and 1000, N 512 and 256), which phases 3 and 6 include.
+   shapes (M 128 and 1000, N 512 and 256), which phases 3 and 6 include;
+16. sequence parallelism (``--seq_parallel --model_axis 2``) on one card,
+   two spawned ranks on cuda:0 over gloo as in phase 15: (a) ring
+   attention alone at lm_4k's attention shapes, (8, 4096, 4, 64) split 2
+   ways, in f32 and bf16, causal and not, each rank's output and q/k/v
+   gradients against one rank's flash (block 512) and dense attention of
+   the whole sequence within 1e-4 (f32) and 2e-2 (bf16) of each one's
+   scale, the bytes the ring sent against ``sp_comm_rows`` (whose
+   backward prices the float32 dk/dv at k's width, so in bf16 it is
+   checked against the float32 count), and a forward and backward of the
+   ring beside one rank's flash (gloo-staged); (b) the LM at lm_4k
+   through ``train(FLAGS, mode="sync")`` for 10 steps in f32 and bf16
+   against a one-rank flash run from one init on one batch stream, f32
+   within 1e-4 and bf16 within 1e-2 of max(1, loss), with each rank's
+   peak memory beside the one-rank run's; (c) lm_bigvocab with
+   ``--ce_block 512`` (bf16) for 3 steps, the same; (d) the
+   MiniTransformer at its registry widths (d 128, 4 heads, 2 blocks) on
+   2,560 synthetic digits at phase 5's recipe (dropout on) for 20 steps
+   in f32 and bf16 against one rank, within phase 5's bars;
+   ``fused_dense_relu`` must not launch over (a)-(d).
 
 Any failed phase raises, so the script exits non-zero. f32 runs in full
 f32: TF32 is turned off for cuDNN and cuBLAS.
@@ -219,6 +240,7 @@ import os
 import re
 import shutil
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -262,6 +284,7 @@ from distributed_tensorflow_tpu_torch.ops.moe import switch_moe
 from distributed_tensorflow_tpu_torch.ops.attention import (
     blockwise_attention,
     multi_head_attention,
+    ring_attention,
 )
 from distributed_tensorflow_tpu_torch.ops.nn import streamed_softmax_ce_head
 from distributed_tensorflow_tpu_torch.ops.fused_dense import (
@@ -269,11 +292,14 @@ from distributed_tensorflow_tpu_torch.ops.fused_dense import (
     fused_dense_relu_reference,
 )
 from distributed_tensorflow_tpu_torch.parallel import (
+    MeshSpec,
     PSClient,
     fetch_state_zero,
     make_mesh,
     shard_state_zero,
+    sp_comm_rows,
 )
+from distributed_tensorflow_tpu_torch.parallel import mesh as mesh_mod
 from distributed_tensorflow_tpu_torch.serving.__main__ import (
     build_serving_stack,
 )
@@ -375,10 +401,10 @@ CIFAR_META = {"image_size": 32, "channels": 3}
 # budget of PS_STEPS global steps and must reach ACCURACY_MIN; one worker
 # runs PS_TRAJ_STEPS cycles with the mirror and as many with the full pull
 # (keep_prob 1), whose final ps params must agree within PS_TRAJ_TOL of
-# each leaf's scale; the timing runs take PS_TIME_STEPS global steps, the
-# first turn of each configuration with a profiled window of
-# PS_PROFILE_CYCLES of worker/0's cycles
-PS_STEPS, PS_TRAJ_STEPS, PS_TIME_STEPS, PS_PROFILE_CYCLES = 600, 20, 150, 20
+# each leaf's scale; the timing runs, one of each configuration, take
+# PS_TIME_STEPS global steps with a profiled window of PS_PROFILE_CYCLES
+# of worker/0's cycles
+PS_STEPS, PS_TRAJ_STEPS, PS_TIME_STEPS, PS_PROFILE_CYCLES = 400, 20, 100, 20
 
 # phase 11: the ZeRO configurations (their flags beside phase 8's), in
 # the order of the timed turns; zero 0 is phase 8's replicated step
@@ -489,6 +515,27 @@ TP_STEPS, TP_RESUME, TP_LM_STEPS, TP_TIME_STEPS = 20, 5, 5, 40
 TP_PROFILE, TP_LM_PROFILE = 10, 2
 TP_LM_TOL = {"f32": 1e-4, "bf16": 2e-2}
 TP_JOIN_S, TP_NCCL_S = 600, 120  # a rank not done by then is stuck
+
+# phase 16: sequence parallelism (--seq_parallel --model_axis 2) on one
+# card, two ranks on cuda:0 over gloo. (a) ring attention alone at
+# lm_4k's attention shapes (B 8, S 4096, H 4, Dh 64) split 2 ways, f32
+# and bf16, causal and not, against one rank's flash (block 512) and
+# dense attention: the output and the q/k/v gradients within 1e-4 (f32)
+# and 2e-2 (bf16) of each one's scale, the ring's bytes against
+# sp_comm_rows; (b) the LM at lm_4k for SP_LM_STEPS steps against a
+# one-rank flash run from one init on one batch stream, f32 within 1e-4
+# and bf16 within 1e-2 of max(1, loss), and each rank's peak memory
+# beside the one-rank run's; (c) lm_bigvocab (ce_block 512, bf16) for
+# SP_BIGV_STEPS steps, the same; (d) the MiniTransformer at its registry
+# widths on SP_DIGITS synthetic digits, SP_CLS_STEPS steps at phase 5's
+# recipe against one rank, within phase 5's bars
+SP_WAYS = TP_WAYS
+SP_ATTN_SHAPE = (8, 4096, 4, 64)
+SP_ATTN_TOL = {"f32": 1e-4, "bf16": 2e-2}
+SP_LM_TOL = {"f32": 1e-4, "bf16": 1e-2}
+SP_LM_STEPS, SP_BIGV_STEPS, SP_CLS_STEPS = 10, 3, 20
+SP_DIGITS = (2560, 512)  # (d)'s synthetic train and test digits
+SP_JOIN_S = 600  # a rank not done by then is stuck
 
 N_REQUESTS, N_THREADS = 64, 8
 KERNEL_SRC = "distributed_tensorflow_tpu_torch/ops/csrc/fused_dense_relu.cu"
@@ -1567,6 +1614,26 @@ def ps_run(work: str, data_dir: str, name: str, wire: str, workers: int,
             else None}
 
 
+def write_ps_split(work: str, data_dir: str) -> str:
+    """Phase 10's ``--data_dir``: the synthetic split this process renders
+    from the empty ``data_dir``, written once as MNIST's IDX files (uint8
+    pixels), which every worker of every ps run reads; a worker
+    subprocess then loads it in milliseconds instead of rendering
+    20,000 digits of its own."""
+    out = os.path.join(work, "ps-idx")
+    os.makedirs(out)
+    ds = read_data_sets(data_dir, one_hot=False)
+    for stem, split in (("train", ds.train), ("t10k", ds.test)):
+        for kind, arr in (("images-idx3", np.round(
+                np.asarray(split.images).reshape(-1, 28, 28) * 255)),
+                          ("labels-idx1", np.asarray(split.labels))):
+            with open(os.path.join(out, f"{stem}-{kind}-ubyte"), "wb") as f:
+                f.write(bytes([0, 0, 0x08, arr.ndim]))
+                f.write(struct.pack(f">{arr.ndim}i", *arr.shape))
+                f.write(arr.astype(np.uint8).tobytes())
+    return out
+
+
 def phase_ps(tag: str, work: str, data_dir: str) -> dict:
     """Phase 10: two workers to test accuracy within PS_STEPS global steps
     (the mirror cycle, cadenced background checkpoints), worker/0's
@@ -1669,18 +1736,17 @@ def phase_ps_mirror_vs_full(work: str, data_dir: str) -> dict:
 
 def phase_ps_times(card: str, work: str, data_dir: str) -> dict:
     """Global steps/s, images/s over both workers and worker/0's per-cycle
-    split, with the mirror on and off, on the f32 and the bf16 wire, in
-    turns (on, off, off, on); the first turn of each configuration
-    profiles PS_PROFILE_CYCLES of worker/0's cycles (its busy share),
-    which stay out of its timed window; worker/1 is never profiled."""
+    split, with the mirror on, then off, on the f32 and the bf16 wire;
+    each run profiles PS_PROFILE_CYCLES of worker/0's cycles (its busy
+    share), which stay out of its timed window; worker/1 is never
+    profiled."""
     rows = {}
     for wire in PS_WIRE_ARGS:
-        for i, mirror in enumerate((True, False, False, True)):
+        for i, mirror in enumerate((True, False)):
             name = f"{wire}-ps-turn-{i}"
             extra = () if mirror else ("--ps_mirror=false",)
-            profile = (("--profile_dir", os.path.join(work, name, "trace"),
-                        "--profile_steps", str(PS_PROFILE_CYCLES))
-                       if i < 2 else ())
+            profile = ("--profile_dir", os.path.join(work, name, "trace"),
+                       "--profile_steps", str(PS_PROFILE_CYCLES))
             run = ps_run(work, data_dir, name, wire, 2, PS_TIME_STEPS,
                          "--display_step", str(100 * PS_TIME_STEPS),
                          "--test_eval", "false", "--save_model_secs",
@@ -3425,7 +3491,8 @@ def tp_timed(logdir, data_dir: str, tag: str, pallas: bool, grid, rank: int,
             "busy": prof.result.device_busy_share}
 
 
-def tp_close(got: dict, want: dict, tol: float, what: str) -> float:
+def tp_close(got: dict, want: dict, tol: float, what: str,
+             phase: str = "model axis") -> float:
     """max |got - want| / max(1, |want|) over the steps of ``want``, which
     must be ``got``'s steps; raises past ``tol``."""
     got = {int(k): v for k, v in got.items()}
@@ -3433,7 +3500,7 @@ def tp_close(got: dict, want: dict, tol: float, what: str) -> float:
         raise AssertionError(f"{what}: steps {sorted(got)} against "
                              f"{sorted(want)}")
     worst = max(rel_diffs(got, want))
-    say("model axis", f"{what}: max |diff|/max(1,|loss|) {worst:.3e} "
+    say(phase, f"{what}: max |diff|/max(1,|loss|) {worst:.3e} "
                       f"(tolerance {tol}); losses {[round(want[s], 5) for s in sorted(want)]}")
     if not worst <= tol:
         raise AssertionError(f"{what}: the model axis leaves the one-rank "
@@ -3548,6 +3615,232 @@ def phase_model_axis(card: str, work: str, data_dir: str) -> dict:
     return out
 
 
+# ----------------------------- phase 16: sequence parallelism on one card
+
+def sp_lm_args(seq_len: int, vocab: int, steps: int, *extra: str
+               ) -> tuple[str, ...]:
+    """The LM at bench.py's width, ``seq_len`` by ``vocab``: adam 1e-3,
+    dropout off, a display eval every step, no test eval."""
+    batch = LM_4K_BATCH if (seq_len, vocab) == LM_4K else LM_BIGV_BATCH
+    return (*lm_args(seq_len, vocab), "--learning_rate", "0.001",
+            "--keep_prob", "1.0", "--batch_size", str(batch),
+            "--training_iter", str(steps), "--display_step", "1",
+            "--test_eval", "false", *extra)
+
+
+def sp_cls_args() -> tuple[str, ...]:
+    """The MiniTransformer at its registry widths (d 128, 4 heads, 2
+    blocks) at phase 5's recipe."""
+    return ("--model", "transformer", "--training_iter", str(SP_CLS_STEPS),
+            "--display_step", "1", "--test_eval", "false")
+
+
+@contextlib.contextmanager
+def small_splits():
+    """The LM's splits cut to LM_SPLIT and the digits' to SP_DIGITS."""
+    saved = (datasets.LM_TRAIN, datasets.LM_TEST, datasets.SYNTHETIC_TRAIN,
+             datasets.SYNTHETIC_TEST)
+    (datasets.LM_TRAIN, datasets.LM_TEST), (
+        datasets.SYNTHETIC_TRAIN, datasets.SYNTHETIC_TEST) = LM_SPLIT, \
+        SP_DIGITS
+    try:
+        yield
+    finally:
+        (datasets.LM_TRAIN, datasets.LM_TEST, datasets.SYNTHETIC_TRAIN,
+         datasets.SYNTHETIC_TEST) = saved
+
+
+def peak_run(make_run):
+    """(run, its peak device bytes above what this process held when it
+    started)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run = make_run()
+    torch.cuda.synchronize()
+    return run, torch.cuda.max_memory_allocated() - held
+
+
+def sp_ring_check(mesh, tag: str, causal: bool) -> dict:
+    """(a) on one rank: ring attention on this rank's token block of
+    seeded q/k/v at SP_ATTN_SHAPE against the flash and dense attention
+    of the whole sequence (this rank's rows of their output and
+    gradients), the bytes the ring sent, and the times of a forward and
+    backward of the ring and of one rank's flash."""
+    dtype = DTYPES[tag]
+    g = torch.Generator().manual_seed(16)
+    q, k, v, do = (torch.randn(SP_ATTN_SHAPE, generator=g).to("cuda", dtype)
+                   for _ in range(4))
+    block = SP_ATTN_SHAPE[1] // mesh.model
+    cols = slice(mesh.model_index * block, (mesh.model_index + 1) * block)
+
+    fwd_sent = []  # the ring's bytes after each forward
+
+    def grads(fn, ts, cot):
+        ts = [t.clone().requires_grad_() for t in ts]
+        out = fn(*ts)
+        fwd_sent.append(mesh_mod.RING_BYTES)
+        return [out.detach()] + list(torch.autograd.grad(out, ts, cot))
+
+    def ring():
+        return grads(lambda *ts: ring_attention(*ts, mesh, causal=causal),
+                     [t[:, cols] for t in (q, k, v)], do[:, cols])
+
+    def flash():
+        return grads(lambda *ts: blockwise_attention(*ts, LM_ATTN_BLOCK,
+                                                     causal=causal),
+                     (q, k, v), do)
+
+    mesh_mod.RING_BYTES = 0
+    got = ring()
+    fwd_bytes, bwd_bytes = fwd_sent[0], mesh_mod.RING_BYTES - fwd_sent[0]
+    errs = {}
+    for name, fn in (("flash", flash), ("dense", lambda: grads(
+            lambda *ts: multi_head_attention(*ts, causal=causal),
+            (q, k, v), do))):
+        want = [t[:, cols] for t in fn()]
+        errs[name] = {n: rel_err(a, b) for n, a, b in
+                      zip(("out", "dq", "dk", "dv"), got, want)}
+        del want
+        torch.cuda.empty_cache()
+    kv = block * SP_ATTN_SHAPE[0] * SP_ATTN_SHAPE[2] * SP_ATTN_SHAPE[3]
+    rows = sp_comm_rows(kv * q.element_size(), mesh.model, 1)
+    # the dk/dv accumulators travel in float32 whatever k's dtype
+    want_bwd = mesh.model * 2 * kv * (q.element_size() + 4)
+    return {"errs": errs, "fwd_bytes": fwd_bytes,
+            "bwd_bytes": bwd_bytes, "rows": [r["bytes"] for r in rows],
+            "want_bwd": want_bwd, "ring_ms": cuda_ms(ring),
+            "flash_ms": cuda_ms(flash)}
+
+
+def sp_rank(rank: int, port: int, work: str, data_dir: str) -> None:
+    """One rank of phase 16, a spawned process: joins the gloo group as a
+    library caller, runs (a) ring attention alone, then trains through
+    ``train(FLAGS, mode="sync")`` with ``--seq_parallel --model_axis 2``:
+    (b) the LM at lm_4k in f32 and bf16, (c) lm_bigvocab, (d) the
+    MiniTransformer; each run's display losses, this rank's peak memory
+    and the wd1 kernel's launches. Writes ``sp-rank{rank}.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=SP_WAYS)
+    grid = (*tp_args(rank, port), "--seq_parallel")
+    fused_dense.LAUNCHES = 0  # the main path's runs start here
+    mesh = make_mesh("cuda", MeshSpec(model=SP_WAYS))
+    out = {"attn": {f"{tag}-{'causal' if c else 'full'}":
+                    sp_ring_check(mesh, tag, c)
+                    for tag in DTYPES for c in (False, True)}}
+    torch.cuda.empty_cache()
+
+    def run(name, tag, *args):
+        r, peak = peak_run(lambda: TrainRun(
+            os.path.join(work, f"sp-{name}-{tag}"), data_dir, tag, False,
+            *args, *grid, mode="sync"))
+        out[f"{name}-{tag}"] = {
+            "losses": r.records("mini_batch_loss") if rank == 0 else {},
+            "peak": peak, "final_step": r.result.final_step}
+
+    with small_splits():
+        for tag in DTYPES:
+            run("lm4k", tag, *sp_lm_args(*LM_4K, SP_LM_STEPS))
+        run("bigv", "bf16", *sp_lm_args(*LM_BIGV, SP_BIGV_STEPS,
+                                        "--ce_block", str(LM_CE_BLOCK)))
+        for tag in DTYPES:
+            run("cls", tag, *sp_cls_args())
+    out["launches"] = fused_dense.LAUNCHES  # ... and end here
+    with open(os.path.join(work, f"sp-rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_seq_parallel(card: str, work: str, data_dir: str) -> dict:
+    """Phase 16: two ranks on this card (gloo, as phase 15), against
+    one-rank runs in this process; parity and memory, the times are
+    gloo-staged."""
+    t0 = time.perf_counter()
+    one = {}
+
+    def single(name, tag, *args):
+        r, peak = peak_run(lambda: TrainRun(
+            os.path.join(work, f"sp-one-{name}-{tag}"), data_dir, tag,
+            False, *args))
+        one[f"{name}-{tag}"] = {"losses": r.records("mini_batch_loss"),
+                                "peak": peak}
+
+    flash = ("--attn_block", str(LM_ATTN_BLOCK))
+    with small_splits():
+        for tag in DTYPES:
+            single("lm4k", tag, *sp_lm_args(*LM_4K, SP_LM_STEPS, *flash))
+        single("bigv", "bf16", *sp_lm_args(*LM_BIGV, SP_BIGV_STEPS, *flash,
+                                           "--ce_block", str(LM_CE_BLOCK)))
+        for tag in DTYPES:
+            single("cls", tag, *sp_cls_args())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    spawn_ranks(sp_rank, free_port(), work, data_dir, timeout=SP_JOIN_S)
+    ranks = [json.load(open(os.path.join(work, f"sp-rank{r}.json")))
+             for r in range(SP_WAYS)]
+    # (a) the ring alone
+    for case, tol_tag in ((c, c.split("-")[0]) for c in ranks[0]["attn"]):
+        for r, got in enumerate(ranks):
+            a = got["attn"][case]
+            say("seq parallel", f"(a) ring attention {case} "
+                                f"{SP_ATTN_SHAPE} 2 ways, rank {r}: errors "
+                                f"in units of each output's max, vs flash "
+                                + ", ".join(f"{n} {e:.3e}" for n, e in
+                                            a["errs"]["flash"].items())
+                                + "; vs dense " + ", ".join(
+                                    f"{n} {e:.3e}" for n, e in
+                                    a["errs"]["dense"].items())
+                                + f" (tolerance {SP_ATTN_TOL[tol_tag]}); "
+                                f"bytes sent forward {a['fwd_bytes']} "
+                                f"backward {a['bwd_bytes']}, sp_comm_rows "
+                                f"{a['rows']} (backward with float32 dk/dv "
+                                f"{a['want_bwd']}); forward+backward "
+                                f"{a['ring_ms']:.3f} ms ring (gloo-staged), "
+                                f"{a['flash_ms']:.3f} ms one rank's flash "
+                                f"over the whole sequence (CUDA events) | "
+                                f"{card}")
+            worst = max(e for d in a["errs"].values() for e in d.values())
+            if not worst <= SP_ATTN_TOL[tol_tag]:
+                raise AssertionError(f"ring attention {case} rank {r} "
+                                     f"leaves its plain versions")
+            if a["fwd_bytes"] != a["rows"][0] or \
+                    a["bwd_bytes"] != a["want_bwd"] or (
+                    tol_tag == "f32" and a["bwd_bytes"] != a["rows"][1]):
+                raise AssertionError(f"ring attention {case} rank {r}: "
+                                     f"its bytes are not sp_comm_rows'")
+    # (b)-(d) training against one rank, with each rank's peak memory
+    for name, tags, tol, what in (
+            ("lm4k", DTYPES, SP_LM_TOL, f"(b) LM lm_4k, {SP_LM_STEPS} "
+                                        f"steps, vs one rank's flash"),
+            ("bigv", ("bf16",), SP_LM_TOL, f"(c) LM lm_bigvocab "
+                                           f"--ce_block {LM_CE_BLOCK}, "
+                                           f"{SP_BIGV_STEPS} steps, vs one "
+                                           f"rank's flash"),
+            ("cls", DTYPES, TRAJ_TOL, f"(d) MiniTransformer, "
+                                      f"{SP_CLS_STEPS} steps, dropout on, "
+                                      f"vs one rank")):
+        for tag in tags:
+            key = f"{name}-{tag}"
+            tp_close(ranks[0][key]["losses"], one[key]["losses"], tol[tag],
+                     f"{what}, {tag}, 1x{SP_WAYS} SP grid",
+                     phase="seq parallel")
+            say("seq parallel", f"{what}, {tag}: peak memory "
+                                + ", ".join(f"rank {r} {g[key]['peak'] / 2**30:.3f} GiB"
+                                            for r, g in enumerate(ranks))
+                                + f" against one rank's "
+                                f"{one[key]['peak'] / 2**30:.3f} GiB | "
+                                f"{card}")
+    launches = [g["launches"] for g in ranks]
+    say("seq parallel", f"fused_dense_relu launches over (a)-(d): "
+                        f"{launches} (the path runs no wd1 layer)")
+    if any(launches):
+        raise AssertionError("the SP path launched the wd1 kernel")
+    say("seq parallel", f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return {"launches": sum(launches)}
+
+
 def phase_model_axis_kernel(card: str, times: dict) -> None:
     """(e): the kernel at the column shards' shapes, from phase 6."""
     for tag in DTYPES:
@@ -3594,9 +3887,10 @@ def main() -> int:
             phase_zero_times(card, work, data_dir, port, resident)
         finally:
             dist.destroy_process_group()
-        ps = {tag: phase_ps(tag, work, data_dir) for tag in DTYPES}
-        phase_ps_mirror_vs_full(work, data_dir)
-        phase_ps_times(card, work, data_dir)
+        ps_data = write_ps_split(work, data_dir)
+        ps = {tag: phase_ps(tag, work, ps_data) for tag in DTYPES}
+        phase_ps_mirror_vs_full(work, ps_data)
+        phase_ps_times(card, work, ps_data)
         lm = phase_lm(card, work, data_dir)
         port = free_port()
         maybe_initialize_distributed(
@@ -3607,6 +3901,7 @@ def main() -> int:
             dist.destroy_process_group()
         cont = phase_continuous(card, work)
         tp = phase_model_axis(card, work, data_dir)
+        sp = phase_seq_parallel(card, work, data_dir)
     times = phase_times(card, served)
     phase_model_axis_kernel(card, times)
     kernels = []
@@ -3620,7 +3915,8 @@ def main() -> int:
                    "lm_train_and_serve": lm["launches"],
                    "lm_device_moe_zero": complete["launches"],
                    "lm_continuous_serve": cont["launches"],
-                   "model_axis_two_ranks": tp["launches"][tag]}
+                   "model_axis_two_ranks": tp["launches"][tag],
+                   "seq_parallel_two_ranks": sp["launches"]}
         kernels.append({
             "name": f"fused_dense_relu[{tag}]", "route": "cuda",
             "variant": "tma", "source": KERNEL_SRC, "replaces": TPU_KERNEL,

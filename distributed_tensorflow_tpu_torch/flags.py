@@ -434,7 +434,21 @@ def define_reference_flags():
                    "column/row-split and the collectives are inserted "
                    "at the split boundaries. 1 = pure data parallelism "
                    "(reference-equivalent). Ranks r*m..r*m+m-1 of the "
-                   "--worker_hosts group form one model group")
+                   "--worker_hosts group form one model group. With "
+                   "--seq_parallel this is the SEQUENCE ways instead")
+    DEFINE_boolean("seq_parallel", False, "Sequence/context parallelism "
+                   "(sync mode, --model transformer or lm): the token axis "
+                   "shards --model_axis ways over the grid's model "
+                   "groups, attention runs as a RING (k/v blocks "
+                   "rotating round the group with online-softmax "
+                   "accumulation), per-rank activation memory stays one "
+                   "token block regardless of context length")
+    DEFINE_boolean("sp_span_hosts", False, "--seq_parallel only: allow "
+                   "a model group (a row of --model_axis consecutive "
+                   "--worker_hosts entries) to SPAN hosts, the hosts "
+                   "being the entries' host parts — ring hops between "
+                   "them then cross the network. Default: the entries of "
+                   "a row must name one host")
     DEFINE_boolean("async_checkpoint", True, "Write cadenced checkpoints "
                    "from a background thread (the state is fetched to "
                    "host on the training thread, then serialized and "
@@ -476,6 +490,7 @@ def define_reference_flags():
                    "window")
     FLAGS._register_validator(_validate_training_flags)
     FLAGS._register_validator(_validate_zero_flags)
+    FLAGS._register_validator(_validate_seq_parallel_flags)
     FLAGS._register_validator(_validate_model_axis_flags)
 
 
@@ -605,13 +620,9 @@ def _validate_zero_flags(values: dict):
             f"it or add --zero_overlap")
     if z == 0:
         return
-    if values.get("expert_parallel"):
-        raise ValueError(
-            f"--zero={z} with --expert_parallel is not supported: ZeRO "
-            f"shards the whole TrainState over the DATA axis while "
-            f"--expert_parallel shards MoE experts over the model axis — "
-            f"the two state layouts collide. Drop one (ZeRO-over-PP/EP is "
-            f"a future composition)")
+    for flag in ("seq_parallel", "expert_parallel"):
+        if values.get(flag):
+            raise ValueError(_zero_collision(z, flag))
     mode = values.get("mode") or "auto"
     if mode == "ps" or values.get("ps_hosts") or values.get("job_name"):
         raise ValueError(
@@ -624,6 +635,118 @@ def _validate_zero_flags(values: dict):
             f"--zero={z} requires sync mode (a torch.distributed group "
             f"to shard over); --mode=local has none. Use --mode=sync "
             f"with --worker_hosts (one worker makes a group of one)")
+
+
+def _zero_collision(z: int, flag: str) -> str:
+    """The JAX package's refusal of ``--zero`` with a model-axis mode."""
+    what = {"seq_parallel": "the token axis",
+            "expert_parallel": "MoE experts"}[flag]
+    return (f"--zero={z} with --{flag} is not supported: ZeRO shards the "
+            f"whole TrainState over the DATA axis while --{flag} shards "
+            f"{what} over the model axis — the two state layouts collide. "
+            f"Drop one (ZeRO-over-PP/EP is a future composition)")
+
+
+# tokens of one --model transformer sequence: an image's rows
+_IMAGE_ROWS = {"mnist": 28, "fashion_mnist": 28, "cifar10": 32}
+
+
+def seq_parallel_error(FLAGS, mode: str) -> str | None:
+    """Why ``--seq_parallel`` cannot run these flags in ``mode`` (the
+    resolved one), or None: the JAX package's refusals, word for word
+    (its ``training/loop.py`` and parse-time checks), plus the port's
+    own for ``--device_data``. The parse-time validator and ``train``
+    both ask; a model group is a row of ``--model_axis`` consecutive
+    ``--worker_hosts`` entries, and its hosts are their host parts."""
+    def flag(name, default=None):
+        return getattr(FLAGS, name, default)
+
+    if not flag("seq_parallel"):
+        if flag("sp_span_hosts"):
+            return ("--sp_span_hosts only applies with --seq_parallel (it "
+                    "lets the TOKEN axis span processes); without it the "
+                    "flag would silently change nothing — drop it or add "
+                    "--seq_parallel")
+        return None
+    z = int(flag("zero", 0) or 0)
+    if z:
+        return _zero_collision(z, "seq_parallel")
+    model = flag("model")
+    if model not in ("transformer", "lm"):
+        return (f"--seq_parallel requires --model transformer or lm (an "
+                f"attention model with a token axis to shard); got "
+                f"--model {model!r}")
+    if int(flag("moe_experts", 0) or 0):
+        return ("--moe_experts with --seq_parallel is not supported: "
+                "token-sharded MoE routing (each shard routing its own "
+                "tokens) is a different design than the expert-sharded "
+                "--expert_parallel; pick one model-axis strategy")
+    if mode != "sync":
+        return ("--seq_parallel requires sync mode (a device mesh); use "
+                "--mode=sync")
+    m = int(flag("model_axis", 1) or 1)
+    if m < 2:
+        return (f"--seq_parallel shards the sequence --model_axis ways; "
+                f"--model_axis={m} shards nothing (use >= 2)")
+    dataset = flag("dataset")
+    seq_len = (int(flag("seq_len")) if dataset == "lm"
+               else _IMAGE_ROWS[dataset])
+    if seq_len % m:
+        return (f"sequence length {seq_len} must divide into "
+                f"--model_axis={m} token blocks")
+    if int(flag("attn_block", 0) or 0) > 0:
+        return ("--attn_block (local blockwise attention) and "
+                "--seq_parallel (ring attention) are mutually exclusive "
+                "attention flavors — the SP step ring-attends; drop one")
+    if flag("augment"):
+        return ("--augment is not supported with --seq_parallel "
+                "(augmentation crops/flips the image layout; token "
+                "blocks have no spatial structure)")
+    if flag("device_data"):
+        return ("--device_data with --seq_parallel is not yet ported to "
+                "distributed_tensorflow_tpu_torch: a CUDA graph cannot "
+                "capture gloo's host-staged collectives, and only NCCL on "
+                "several cards could show it (ROADMAP queue 1). Drop "
+                "--device_data")
+    workers = [h for h in (flag("worker_hosts") or "").split(",") if h]
+    rows = [workers[r:r + m] for r in range(0, len(workers), m)]
+    if not flag("sp_span_hosts") and any(
+            len({h.rsplit(":", 1)[0] for h in row}) > 1 for row in rows):
+        return (f"--seq_parallel with --model_axis={m} puts devices from "
+                f"multiple hosts on one token-axis row of the mesh; each "
+                f"host must hold the full sequence — use a model_axis "
+                f"whose rows stay within one host's chips, or opt into "
+                f"cross-host ring hops with --sp_span_hosts")
+    data_ways = max(1, len(workers) // m)
+    batch = int(flag("batch_size"))
+    if batch % data_ways:
+        return (f"--batch_size={batch} must be divisible by the "
+                f"{data_ways}-way data axis")
+    accum = max(1, int(flag("accum_steps", 1) or 1))
+    if accum > 1 and (batch // data_ways) % accum:
+        return (f"each data shard's slice ({batch // data_ways} examples) "
+                f"must split into {accum} equal microbatches")
+    return None
+
+
+def _validate_seq_parallel_flags(values: dict):
+    """``seq_parallel_error`` at parse time, in the mode the flags
+    resolve to (``cluster.resolve_mode``), so a refused combination
+    exits 2 at the command line. The ps topology is left to the ps
+    dispatch (``ps_emulation.ps_unsupported_flag_error``)."""
+    from types import SimpleNamespace
+
+    from distributed_tensorflow_tpu_torch.cluster import resolve_mode
+
+    if not (values.get("seq_parallel") or values.get("sp_span_hosts")):
+        return
+    ns = SimpleNamespace(**values)
+    mode = resolve_mode(ns)
+    if mode == "ps" and values.get("seq_parallel"):
+        return  # every ps role refuses it with the JAX package's message
+    err = seq_parallel_error(ns, mode)
+    if err is not None:
+        raise ValueError(err)
 
 
 def _validate_model_axis_flags(values: dict):

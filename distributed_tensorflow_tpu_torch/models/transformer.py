@@ -16,9 +16,14 @@ training forward and the serving decode (``serving/decode.py``) both run.
 Tensor parallelism (``model.tp``, ``parallel/tensor_parallel.py``) runs
 each block on its rank's heads and MLP columns, with one sum over the
 model group after ``proj`` and one after ``mlp_out``; embeddings, layer
-norms and the head stay replicated. Sequence parallelism (``seq_axis``,
-ring attention) and expert parallelism (``moe_axis``) come with a later
-slice and raise here.
+norms and the head stay replicated. Sequence parallelism: built with
+``seq_axis="model"`` and handed its grid by the SP step
+(``parallel/sequence_parallel.py``), a model takes this rank's token
+block, slices its positional table at ``model_index * S_local``, runs
+ring attention over the model group (non-causal for the classifier,
+causal for the LM) and, in the classifier, mean-pools with a sum over
+the group. Expert parallelism (``moe_axis``) comes with a later slice
+and raises here.
 """
 
 from __future__ import annotations
@@ -33,12 +38,18 @@ from distributed_tensorflow_tpu_torch.ops import nn as ops
 from distributed_tensorflow_tpu_torch.ops.attention import (
     blockwise_attention,
     multi_head_attention,
+    ring_attention,
 )
 from distributed_tensorflow_tpu_torch.ops.moe import switch_moe
+from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import (
+    psum_model,
+    sp_of,
+)
 from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
     copy_to_model,
     reduce_from_model,
 )
+from distributed_tensorflow_tpu_torch.training.train_state import _mix
 
 
 def _layernorm(x, gain, bias, eps: float = 1e-5):
@@ -215,12 +226,7 @@ def _tp_of(model):
     return tp
 
 
-def _refuse_unported(seq_axis, moe_axis=None) -> None:
-    if seq_axis is not None:
-        raise NotImplementedError(
-            "seq_axis (ring attention, sequence parallelism) is not yet "
-            "ported to distributed_tensorflow_tpu_torch (ROADMAP queue 1: "
-            "the model axis on torch.distributed, then SP)")
+def _refuse_unported(moe_axis) -> None:
     if moe_axis is not None:
         raise NotImplementedError(
             "moe_axis (expert parallelism) is not yet ported to "
@@ -259,6 +265,24 @@ class _TransformerBase(nn.Module):
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def twin(self, **changes):
+        """This model built again with ``changes`` to its options (say
+        ``seq_axis`` or ``attn_block``), on the same parameter tensors:
+        an update of one is an update of the other, and gradients taken
+        through either reach the same leaves."""
+        other = type(self)(**{**self._options, **changes})
+        other.load_state_dict(self.state_dict(keep_vars=True), assign=True)
+        return other
+
+    def _positions(self, s_local: int, sp):
+        """The positional table's rows of this rank's tokens: all of it,
+        or under sequence parallelism the block at ``model_index *
+        s_local``."""
+        if sp is None:
+            return self.pos
+        start = sp.model_index * s_local
+        return self.pos[start:start + s_local]
+
 
 @register_model("transformer")
 class MiniTransformer(_TransformerBase):
@@ -275,7 +299,12 @@ class MiniTransformer(_TransformerBase):
                  seq_axis: str | None = None, remat: bool = False,
                  **_unused):
         super().__init__()
-        _refuse_unported(seq_axis)
+        self._options = dict(
+            image_size=image_size, channels=channels,
+            num_classes=num_classes, d_model=d_model, num_heads=num_heads,
+            num_blocks=num_blocks, mlp_ratio=mlp_ratio,
+            compute_dtype=compute_dtype, seq_axis=seq_axis, remat=remat)
+        self.seq_axis = seq_axis
         self.image_size = image_size
         self.channels = channels
         self.num_classes = num_classes
@@ -309,19 +338,27 @@ class MiniTransformer(_TransformerBase):
     def forward(self, x, *, keep_prob: float = 1.0,
                 generator: torch.Generator | None = None,
                 train: bool = False):
-        """(B, 784 * C) or (B, S, token) images -> float32 logits."""
+        """(B, 784 * C) or (B, S, token) images -> float32 logits. Under
+        sequence parallelism ``x`` is this rank's token block (B, S/P,
+        token), and the pool sums over the group before it divides by
+        the whole length, so the head sees the whole sequence."""
         cd = self.compute_dtype
+        sp = sp_of(self)
         x = ops.normalize_if_u8(x, cd)
         if x.dim() == 2:
             x = x.reshape(-1, self.seq_len, self.token_dim)
         if cd is not None:
             x = x.to(cd)
         h = ops.dense(x, self.embed["w"], self.embed["b"], compute_dtype=cd)
-        h = h + self.pos.to(h.dtype)
-        h = _run_blocks(h, self.blocks, multi_head_attention, cd,
-                        self.remat, _tp_of(self))
+        h = h + self._positions(x.shape[1], sp).to(h.dtype)
+        attn = (multi_head_attention if sp is None else
+                lambda q, k, v: ring_attention(q, k, v, sp))
+        h = _run_blocks(h, self.blocks, attn, cd, self.remat, _tp_of(self))
         h = _layernorm(h, self.ln_f["g"], self.ln_f["b"])
-        pooled = h.sum(dim=1) / torch.tensor(self.seq_len, dtype=h.dtype)
+        pooled = h.sum(dim=1)
+        if sp is not None:
+            pooled = psum_model(pooled, sp)
+        pooled = pooled / torch.tensor(self.seq_len, dtype=h.dtype)
         pooled = ops.dropout(pooled, keep_prob, generator,
                              deterministic=not train)
         logits = ops.dense(pooled, self.head["w"], self.head["b"],
@@ -357,7 +394,22 @@ class TransformerLM(_TransformerBase):
                  moe_capacity: float = 1.25, moe_aux: float = 0.01,
                  moe_axis: str | None = None, **_unused):
         super().__init__()
-        _refuse_unported(seq_axis, moe_axis)
+        if seq_axis is not None and attn_block is not None:
+            raise ValueError("seq_axis (ring) and attn_block (local "
+                             "blockwise) are mutually exclusive attention "
+                             "flavors")
+        if moe_axis is not None and seq_axis is not None:
+            raise ValueError("moe_axis and seq_axis both claim the mesh's "
+                             "model axis — pick one")
+        _refuse_unported(moe_axis)
+        self._options = dict(
+            vocab_size=vocab_size, seq_len=seq_len, d_model=d_model,
+            num_heads=num_heads, num_blocks=num_blocks, mlp_ratio=mlp_ratio,
+            compute_dtype=compute_dtype, seq_axis=seq_axis,
+            attn_block=attn_block, remat=remat, ce_block=ce_block,
+            moe_experts=moe_experts, moe_capacity=moe_capacity,
+            moe_aux=moe_aux)
+        self.seq_axis = seq_axis
         self.vocab_size = vocab_size
         self.seq_len = seq_len
         self.d_model = d_model
@@ -387,16 +439,21 @@ class TransformerLM(_TransformerBase):
         return self
 
     def attention(self, q, k, v):
-        """The model's causal attention form."""
+        """The model's causal attention form: the ring under sequence
+        parallelism, else flash with ``attn_block``, else dense."""
+        sp = sp_of(self)
+        if sp is not None:
+            return ring_attention(q, k, v, sp, causal=True)
         if self.attn_block is not None:
             return blockwise_attention(q, k, v, self.attn_block, causal=True)
         return multi_head_attention(q, k, v, causal=True)
 
     def embed(self, x):
         """Token plus position embeddings of ids (B, S), in the compute
-        dtype."""
+        dtype; under sequence parallelism ``x`` is this rank's token
+        block and takes its rows of the positional table."""
         h = F.embedding(x, self.tok)
-        h = h + self.pos.to(h.dtype)
+        h = h + self._positions(x.shape[1], sp_of(self)).to(h.dtype)
         return h if self.compute_dtype is None else h.to(self.compute_dtype)
 
     def apply_hidden(self, x, *, keep_prob: float = 1.0,
@@ -424,6 +481,12 @@ class TransformerLM(_TransformerBase):
             h = _run_blocks(h, self.blocks, self.attention, cd, self.remat,
                             _tp_of(self))
         h = _layernorm(h, self.ln_f["g"], self.ln_f["b"])
+        sp = sp_of(self)
+        if generator is not None and sp is not None:
+            # per-token dropout: each shard holds other tokens, so its
+            # mask must differ (unlike the classifier's post-pool mask)
+            generator = torch.Generator(device=generator.device).manual_seed(
+                _mix(generator.initial_seed(), sp.model_index))
         return (ops.dropout(h, keep_prob, generator,
                             deterministic=not train), lb_total)
 

@@ -1,6 +1,6 @@
 """Parallelism: the mesh (data, or a data x model grid), synchronous data
-parallelism on ``torch.distributed``, its ZeRO-sharded form, tensor
-parallelism over the grid's model axis, and the asynchronous
+parallelism on ``torch.distributed``, its ZeRO-sharded form, tensor and
+sequence parallelism over the grid's model axis, and the asynchronous
 parameter-server topology."""
 
 from distributed_tensorflow_tpu_torch.parallel.data_parallel import (  # noqa: F401
@@ -17,6 +17,7 @@ from distributed_tensorflow_tpu_torch.parallel.mesh import (  # noqa: F401
     GridMesh,
     MeshSpec,
     make_mesh,
+    ring_shift,
 )
 from distributed_tensorflow_tpu_torch.parallel.ps_emulation import (  # noqa: F401
     MirrorCycle,
@@ -28,6 +29,14 @@ from distributed_tensorflow_tpu_torch.parallel.ps_emulation import (  # noqa: F4
     ps_unsupported_flag_error,
     run_parameter_server,
     run_worker,
+)
+from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import (  # noqa: F401
+    make_sp_eval_step,
+    make_sp_train_step,
+    psum_model,
+    reshape_for_sp,
+    sp_comm_rows,
+    stage_batch_sp,
 )
 from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (  # noqa: F401
     copy_to_model,

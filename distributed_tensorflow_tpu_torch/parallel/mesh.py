@@ -11,6 +11,11 @@ data x m grid, the order of JAX's
 that hold the same shards and average their gradients). A grid of one
 column is the data mesh, ``DataMesh``, which the data-parallel, ZeRO
 and ps code take.
+
+``ring_shift`` passes a tensor one step round a model group: JAX's
+``lax.ppermute`` over the model axis with the permutation
+``[(i, (i + 1) % P)]``, the hop of ring attention
+(``ops/attention.ring_attention``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+
+RING_BYTES = 0  # bytes this process sent through ring_shift since a reset
 
 
 @dataclass(frozen=True)
@@ -85,6 +92,13 @@ class GridMesh:
                         device=self.device, backend=self.backend,
                         group=self.data_group)
 
+    @property
+    def model_mesh(self) -> DataMesh:
+        """The row as a ``DataMesh``: the mean over the model group."""
+        return DataMesh(rank=self.model_index, world_size=self.model,
+                        device=self.device, backend=self.backend,
+                        group=self.model_group)
+
 
 def make_mesh(device: torch.device | str, spec: MeshSpec | None = None,
               group=None):
@@ -121,3 +135,33 @@ def make_mesh(device: torch.device | str, spec: MeshSpec | None = None,
                     data_index=rank // model, model_index=rank % model,
                     model_group=rows[rank // model],
                     data_group=cols[rank % model])
+
+
+def ring_shift(t: torch.Tensor, mesh: GridMesh) -> torch.Tensor:
+    """``t`` sent to the next rank of this rank's model group, ``(i + 1)
+    % P``, and the previous rank's ``t`` returned, from ``(i - 1) % P``:
+    JAX's ``lax.ppermute(t, "model", [(i, (i + 1) % P)])``. Both
+    transfers are posted before either is waited on
+    (``dist.batch_isend_irecv``): a blocking send then receive on every
+    rank of the ring would deadlock. The group's ranks are translated to
+    the world's with ``dist.get_global_rank``.
+
+    On an NCCL group the tensors move from device to device. On a gloo
+    group, whose point-to-point calls take host tensors, a CUDA tensor
+    goes through a host copy each way (the model axis of ranks that
+    share one card). Adds the bytes sent to ``RING_BYTES``."""
+    global RING_BYTES
+    ways, me = mesh.model, mesh.model_index
+    group = mesh.model_group
+    staged = mesh.backend != "nccl" and t.device.type != "cpu"
+    send = t.detach().to("cpu" if staged else t.device).contiguous()
+    recv = torch.empty_like(send)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send,
+                   dist.get_global_rank(group, (me + 1) % ways), group),
+        dist.P2POp(dist.irecv, recv,
+                   dist.get_global_rank(group, (me - 1) % ways), group)])
+    for req in reqs:
+        req.wait()
+    RING_BYTES += send.numel() * send.element_size()
+    return recv.to(t.device) if staged else recv

@@ -27,7 +27,11 @@ state then exists only as the host copy that a collective fetch makes at
 the steps every rank agrees on (``_ZeroSession``). ``--model_axis m``
 makes the group a data x m grid whose rows split the model
 (``parallel/tensor_parallel.py``, ``_TPSession``): every checkpoint is
-then a coordinated one, each rank writing its own slices.
+then a coordinated one, each rank writing its own slices. With
+``--seq_parallel`` the rows split the sequence instead
+(``parallel/sequence_parallel.py``, ``_SPSession``): every rank holds a
+token block of its row's batch and the whole replicated state, which the
+chief saves and evaluates alone.
 ``--fault_spec`` is armed at the start of ``train`` and
 ``evaluate_only``.
 """
@@ -51,7 +55,10 @@ from distributed_tensorflow_tpu_torch.checkpoint import (
     restore_with_fallback,
 )
 from distributed_tensorflow_tpu_torch.cluster import ClusterSpec
-from distributed_tensorflow_tpu_torch.flags import training_entry_error
+from distributed_tensorflow_tpu_torch.flags import (
+    seq_parallel_error,
+    training_entry_error,
+)
 from distributed_tensorflow_tpu_torch.data import (
     batch_iterator,
     prefetch_to_device,
@@ -67,7 +74,17 @@ from distributed_tensorflow_tpu_torch.parallel import (
     make_mesh,
     replicate_state,
 )
-from distributed_tensorflow_tpu_torch.parallel.mesh import GridMesh, MeshSpec
+from distributed_tensorflow_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    GridMesh,
+    MeshSpec,
+)
+from distributed_tensorflow_tpu_torch.parallel.sequence_parallel import (
+    make_sp_eval_step,
+    make_sp_train_step,
+    reshape_for_sp,
+    stage_batch_sp,
+)
 from distributed_tensorflow_tpu_torch.parallel.tensor_parallel import (
     _check_divisibility,
     has_tp_specs,
@@ -243,6 +260,9 @@ def train(FLAGS, mode: str = "local") -> TrainResult:
             f"topology's roles run in parallel.ps_emulation "
             f"(run_parameter_server, run_worker)")
     _configure_faults(FLAGS)
+    err = seq_parallel_error(FLAGS, mode)
+    if err is not None:
+        raise ValueError(err)
     return _train_once(FLAGS, mode)
 
 
@@ -274,10 +294,15 @@ class _Session:
     the metrics logger, the meters, the periodic eval, and the stop
     signal (the coordinator's vote when more than one process runs)."""
 
+    # the reference's display line from task 0 only (a grid's rows are
+    # one model, whose display metrics every rank holds)
+    chief_displays = False
+
     def __init__(self, FLAGS, model, ds, mesh):
         n_chips = mesh.world_size if mesh is not None else 1
         # a tensor-parallel model evaluates through every rank's shards
-        self.collective = isinstance(mesh, GridMesh)
+        self.collective = (isinstance(mesh, GridMesh)
+                           and not FLAGS.seq_parallel)
         self.sv = Supervisor(is_chief=(FLAGS.task_index == 0),
                              logdir=FLAGS.logdir,
                              save_model_secs=FLAGS.save_model_secs,
@@ -329,6 +354,8 @@ class _Session:
 
     def display(self, step: int, metrics: dict) -> dict:
         shown = {k: float(v) for k, v in metrics.items()}
+        if self.chief_displays and not self.sv.is_chief:
+            return shown
         self.logger.log_display(step, shown["loss"], shown["accuracy"])
         self.logger.scalars(step, {"images_per_sec": self.meter.images_per_sec,
                                    **self.stimer.scalars()})
@@ -352,6 +379,8 @@ class _TPSession(_Session):
     collectives), the chief alone prints and logs, and the reference's
     display line comes from task 0 only."""
 
+    chief_displays = True
+
     def start(self, box):
         state, step = super().start(box)
         state = shard_state_tp(state, self.mesh)
@@ -365,10 +394,15 @@ class _TPSession(_Session):
             self.sv.checkpoint_coordinated(state, step,
                                            attempt=self.coord.token)
 
-    def display(self, step: int, metrics: dict) -> dict:
-        if self.sv.is_chief:
-            return super().display(step, metrics)
-        return {k: float(v) for k, v in metrics.items()}
+
+class _SPSession(_Session):
+    """The session of a ``--seq_parallel`` run. The state is replicated,
+    rank 0's on every rank, so the chief saves it in the one-process
+    format and evaluates the splits alone on the dense twin (the
+    blockwise one at long context); the display eval is the SP step's,
+    on every rank, and its line comes from task 0 only."""
+
+    chief_displays = True
 
 
 class _ZeroSession(_Session):
@@ -488,13 +522,21 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
         else None
     augment = augment_for(FLAGS, ds.meta)
     accum = max(1, FLAGS.accum_steps)
-    if model_axis > 1:
+    if FLAGS.seq_parallel:
+        # the batch splits over the data ways; a row reads one slice
+        feed_batch = FLAGS.batch_size // mesh.data
+    elif model_axis > 1:
         feed_batch = FLAGS.batch_size // _check_tp(FLAGS, state, mesh, accum)
     elif mesh is not None:
         feed_batch = local_batch_size(FLAGS.batch_size, mesh)
     else:
         feed_batch = FLAGS.batch_size
-    if model_axis > 1:
+    if FLAGS.seq_parallel:
+        # sequence parallelism (+DP over the grid's columns):
+        # parallel/sequence_parallel.py
+        step_fn, eval_fn, model = _sp_fns(FLAGS, model, opt, mesh, clip,
+                                          accum)
+    elif model_axis > 1:
         # tensor parallelism (+DP over the grid's columns):
         # parallel/tensor_parallel.py
         clip = (tp_clip_transform(FLAGS.clip_norm, state.params, mesh)
@@ -530,6 +572,8 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
                          f"divisible by --accum_steps={accum}")
     if level:
         run = _ZeroSession(FLAGS, model, ds, mesh, level)
+    elif FLAGS.seq_parallel:
+        run = _SPSession(FLAGS, model, ds, mesh)
     elif model_axis > 1:
         run = _TPSession(FLAGS, model, ds, mesh)
     else:
@@ -577,6 +621,38 @@ def _train_once(FLAGS, mode: str = "local") -> TrainResult:
         finally:
             batches.close()
     return _finish(FLAGS, run, model, ds, *out)
+
+
+def _sp_fns(FLAGS, model, opt, mesh, clip, accum: int):
+    """--seq_parallel's host-fed step and display eval over ``mesh``, and
+    the model the chief evaluates the splits with. The step runs the
+    model's SP twin (``seq_axis``, ring attention), on the same parameter
+    tensors. The splits' evaluation runs the dense model, which at 1024
+    tokens or more is rebuilt with flash attention so that no rank forms
+    the (S, S) scores. Each function cuts this rank's tile from the
+    batch its row read."""
+    from distributed_tensorflow_tpu_torch.models import TransformerLM
+
+    is_lm = isinstance(model, TransformerLM)
+    sp_model = model.twin(seq_axis=MODEL_AXIS)
+    if is_lm and model.seq_len >= 1024:
+        block = next((b for b in (512, 256, 128, 64)
+                      if model.seq_len % b == 0), None)
+        if block is not None:
+            model = model.twin(attn_block=block)
+    step = make_sp_train_step(sp_model, opt, mesh, keep_prob=FLAGS.keep_prob,
+                              grad_transform=clip, accum_steps=accum)
+    sp_eval = make_sp_eval_step(sp_model, mesh)
+
+    def tile(batch):
+        x, y = batch
+        if not is_lm:
+            x = reshape_for_sp(sp_model, x)
+        return stage_batch_sp(mesh, (x, y), per_token_targets=is_lm)
+
+    return ((lambda state, batch: step(state, tile(batch))),
+            (lambda state, batch: sp_eval(tile(batch), state.model_state)),
+            model)
 
 
 def _check_tp(FLAGS, state, mesh, accum: int) -> int:

@@ -50,7 +50,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "serving.kvpage", "serving.continuous",
                 "parallel.tensor_parallel", "checkpoint.checkpoint",
                 "training.supervisor", "utils.pytree", "data.pipeline",
-                "cluster", "flags", "models.cnn", "training.train_state"):
+                "cluster", "flags", "models.cnn", "training.train_state",
+                "parallel.sequence_parallel"):
         assert f"distributed_tensorflow_tpu_torch.{new}" in names
     proc = subprocess.run([sys.executable, "-c", _PROBE, *names,
                            "chip_smoke", "port_kernel_study",

@@ -364,10 +364,14 @@ def test_pairing_errors_and_paths_not_yet_ported(fresh_flags, tmp_path):
     assert get_model("lm", moe_experts=2).wants_loss_hook
     with pytest.raises(NotImplementedError, match="moe_axis"):
         get_model("lm", moe_experts=2, moe_axis="model")
-    with pytest.raises(NotImplementedError, match="seq_axis"):
-        get_model("lm", seq_axis="model")
-    with pytest.raises(NotImplementedError, match="seq_axis"):
-        get_model("transformer", seq_axis="model")
+    # the seq_axis forms are ported: they build, and run only on the
+    # grid the SP step hands them
+    for name in ("lm", "transformer"):
+        model = get_model(name, seq_axis="model")
+        assert model.seq_axis == "model"
+        with pytest.raises(RuntimeError, match="make_sp_train_step"):
+            model(torch.zeros((1, 28, 28)) if name == "transformer"
+                  else torch.zeros((1, 256), dtype=torch.int64))
 
 
 def test_ps_roles_refuse_the_lm(fresh_flags):

@@ -242,9 +242,9 @@ def test_models_that_are_not_ported_raise(port_flags):
     )
     from distributed_tensorflow_tpu_torch.training.loop import build_model_for
 
-    # the transformer families and the LM's MoE blocks are ported now;
-    # their sequence- and expert-parallel forms are not, and token data
-    # still needs --model lm
+    # the transformer families, their sequence-parallel forms and the
+    # LM's MoE blocks are ported now; the expert-parallel form is not,
+    # and token data still needs --model lm
     cifar = {"image_size": 32, "channels": 3, "num_classes": 10}
     port_flags._parse(["--model=transformer"])
     assert isinstance(build_model_for(port_flags, cifar), MiniTransformer)
@@ -253,8 +253,9 @@ def test_models_that_are_not_ported_raise(port_flags):
     with pytest.raises(ValueError, match="Use --model lm"):
         build_model_for(port_flags, {"kind": "lm"})
     assert get_model("lm", moe_experts=4).blocks[0].moe["w1"].shape[0] == 4
+    assert get_model("transformer", seq_axis="model").seq_axis == "model"
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model("transformer", seq_axis="model")
+        get_model("lm", moe_experts=4, moe_axis="model")
     port_flags._reset()
     port_flags._parse(["--model=lm", "--dataset=lm", "--moe_experts=4",
                        "--expert_parallel"])
@@ -375,10 +376,10 @@ def test_entry_point_without_a_card_exits_nonzero(tmp_path):
 
 
 def test_entry_point_rejects_flags_of_paths_not_ported(tmp_path):
-    proc = _run_entry(["--device", "cpu", "--seq_parallel",
+    proc = _run_entry(["--device", "cpu", "--pipeline",
                        "--logdir", str(tmp_path / "logs")])
     assert proc.returncode == 2
-    assert "unknown flag" in proc.stderr and "--seq_parallel" in proc.stderr
+    assert "unknown flag" in proc.stderr and "--pipeline" in proc.stderr
 
 
 def test_entry_point_trains_resnet20_on_cifar10_with_augment(tmp_path):
